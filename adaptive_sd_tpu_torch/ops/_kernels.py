@@ -1,0 +1,133 @@
+"""Build and load the port's hand-written CUDA kernels (``csrc/*.cu``).
+
+Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
+library with a plain C interface, the first time a CUDA tensor reaches its
+wrapper (or when :func:`build` is called), and loaded with ``ctypes``. All
+stale sources are compiled in parallel, one ``nvcc`` each. Every C entry point
+launches on the given stream and returns ``cudaGetLastError()``; the wrappers
+raise on a non-zero code. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+# kernel name -> (source, C symbol, argtypes)
+KERNELS = {
+    "int8_matmul": ("matmul_int8.cu", "asd_int8_matmul", [_P] * 5 + [_I] * 7 + [_P]),
+    "paged_decode": ("paged_decode.cu", "asd_paged_decode", [_P] * 8 + [_I] * 7 + [_F, _I, _P]),
+    "paged_window": ("paged_window.cu", "asd_paged_window", [_P] * 9 + [_I] * 8 + [_F, _I, _P]),
+}
+_HEADERS = ("common.cuh", "paged_attention.cuh")
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+
+class LaunchCounter:
+    """Launch count of one kernel wrapper: ``launches`` grows by one where
+    the wrapper launches its CUDA kernel, and nowhere else."""
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+
+_lock = threading.Lock()
+_funcs: dict[str, ctypes._CFuncPtr] = {}
+
+
+def nvcc_path() -> str:
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    lib = _lib_path(name)
+    if not lib.exists():
+        return True
+    deps = [CSRC / KERNELS[name][0]] + [CSRC / h for h in _HEADERS]
+    return lib.stat().st_mtime < max(d.stat().st_mtime for d in deps)
+
+
+def build(names=None, *, ptxas_verbose: bool = False) -> dict[str, dict]:
+    """Compile the stale kernel libraries in parallel (one ``nvcc`` per
+    source). Returns ``{name: {"seconds": s, "log": compiler stderr}}`` for
+    what was compiled; raises with the compiler's output on failure."""
+    names = list(KERNELS) if names is None else list(names)
+    todo = [n for n in names if _stale(n)]
+    if not todo:
+        return {}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for n in todo:
+        tmp = BUILD_DIR / f"lib{n}.{os.getpid()}.tmp.so"
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_verbose else []),
+               "-o", str(tmp), str(CSRC / KERNELS[n][0])]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                     text=True), tmp, time.perf_counter())
+    out, errors = {}, []
+    for n, (proc, tmp, t0) in procs.items():
+        stdout, stderr = proc.communicate()
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {KERNELS[n][0]}:\n{stdout}{stderr}")
+            continue
+        os.replace(tmp, _lib_path(n))
+        out[n] = {"seconds": secs, "log": stderr}
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return out
+
+
+def function(name: str):
+    """The C entry point of kernel library ``name``, built on first use."""
+    fn = _funcs.get(name)
+    if fn is not None:
+        return fn
+    with _lock:
+        fn = _funcs.get(name)
+        if fn is None:
+            build([name])
+            _, symbol, argtypes = KERNELS[name]
+            fn = getattr(ctypes.CDLL(str(_lib_path(name))), symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _funcs[name] = fn
+    return fn
+
+
+def check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {rc}")
+
+
+def stream_of(t) -> int:
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,112 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch versions,
+and the engine on the card against the engine on the CPU. Needs an NVIDIA
+GPU with nvcc; elsewhere every test skips. Run on the card with
+``python -m pytest -m cuda tests/test_torch_cuda.py``."""
+
+import numpy as np
+import pytest
+import torch
+
+from adaptive_sd_tpu_torch.engine import TierEngine
+from adaptive_sd_tpu_torch.models import TINY128, init_params_quantized
+from adaptive_sd_tpu_torch.ops import attention as A
+from adaptive_sd_tpu_torch.ops import matmul_q as MQ
+from adaptive_sd_tpu_torch.ops.quant import quantize_int8
+
+pytestmark = pytest.mark.cuda
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 256, 384), (4, 1000, 200), (7, 512, 4099), (300, 384, 256)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_kernel_matches_plain(cuda, M, K, N, dtype):
+    g = torch.Generator(device=cuda).manual_seed(M + K)
+    t = quantize_int8(torch.randn(K, N, generator=g, device=cuda))
+    x = torch.randn(M, K, generator=g, device=cuda).to(dtype)
+    before = MQ.int8_matmul_counter.launches
+    out = MQ.quantized_matmul(x, t.q, t.scale)
+    ref = MQ.quantized_matmul_ref(x, t.q, t.scale)
+    torch.cuda.synchronize()
+    assert MQ.int8_matmul_counter.launches == before + 1
+    # f32 sums in another order; bf16 outputs may differ by one rounding step
+    tol = dict(rtol=1e-5, atol=1e-4) if dtype == torch.float32 else dict(rtol=1e-2, atol=2e-2)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+def _pages(g, n_kv, n_pages, page, D, dev):
+    kq = torch.randint(-127, 128, (n_kv, n_pages, page, D), generator=g, device=dev,
+                       dtype=torch.int8)
+    vq = torch.randint(-127, 128, (n_kv, n_pages, page, D), generator=g, device=dev,
+                       dtype=torch.int8)
+    ks = torch.rand(n_kv, n_pages, 1, page, generator=g, device=dev) * 0.02 + 1e-3
+    vs = torch.rand(n_kv, n_pages, 1, page, generator=g, device=dev) * 0.02 + 1e-3
+    return kq, ks, vq, vs
+
+
+@pytest.mark.parametrize("G,page", [(7, 128), (5, 128), (2, 16)])
+def test_paged_decode_kernel_matches_plain(cuda, G, page):
+    g = torch.Generator(device=cuda).manual_seed(G)
+    B, n_kv, D, n_pages = 3, 2, 128, 12
+    kp, ks, vp, vs = _pages(g, n_kv, n_pages, page, D, cuda)
+    q = torch.randn(B, n_kv, G, D, generator=g, device=cuda)
+    tables = torch.tensor([[3, 1, 7, 5, 2, 0, 4, 6, 8], [9, 10, 11, 0, 1, 2, 3, 4, 5],
+                           [n_pages] * 9], dtype=torch.int32, device=cuda)
+    lens = torch.tensor([min(1000, 9 * page), min(300, 9 * page), 1], dtype=torch.int32,
+                        device=cuda)
+    out = A.paged_attention(q, kp, ks, vp, vs, tables, lens, sm_scale=D ** -0.5)
+    ref = A.paged_attention_ref(q, kp, ks, vp, vs, tables, lens, sm_scale=D ** -0.5)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("G,W", [(7, 33), (5, 64), (2, 5)])
+def test_paged_window_kernel_matches_plain(cuda, G, W):
+    g = torch.Generator(device=cuda).manual_seed(G + W)
+    B, n_kv, D, page, n_pages = 3, 2, 128, 128, 12
+    kp, ks, vp, vs = _pages(g, n_kv, n_pages, page, D, cuda)
+    q = torch.randn(B, n_kv, W * G, D, generator=g, device=cuda)
+    tables = torch.tensor([[3, 1, 7, 5], [9, 10, 11, 0], [n_pages] * 4], dtype=torch.int32,
+                          device=cuda)
+    offsets = torch.tensor([256, 37, 0], dtype=torch.int32, device=cuda)
+    win = torch.tensor([W, max(W // 2, 1), 1], dtype=torch.int32, device=cuda)
+    ctx = offsets + win
+    out = A.paged_window_attention(q, kp, ks, vp, vs, tables, ctx, offsets, group=G,
+                                   sm_scale=D ** -0.5)
+    ref = A.paged_window_attention_ref(q, kp, ks, vp, vs, tables, ctx, offsets, group=G,
+                                       sm_scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    for b in range(B):
+        r = int(win[b]) * G
+        torch.testing.assert_close(out[b, :, :r], ref[b, :, :r], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("prefix_cache", [False, True])
+def test_engine_on_card_matches_cpu(cuda, prefix_cache):
+    """f32 TINY128 weights: the kernels' engine gives the plain engine's tokens."""
+    params = init_params_quantized(TINY128, 0, device="cpu", dtype=torch.float32)
+    on_card = {k: v for k, v in params.items()}
+    on_card["embed"] = params["embed"].to(cuda)
+    on_card["final_norm"] = params["final_norm"].to(cuda)
+    on_card["lm_head"] = params["lm_head"].to(cuda)
+    on_card["layers"] = [{k: v.to(cuda) for k, v in layer.items()} for layer in params["layers"]]
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(1, TINY128.vocab_size, n)] for n in (37, 150, 300)]
+    kw = dict(page_size=128, n_pages=32, enable_prefix_cache=prefix_cache)
+    cpu = TierEngine(TINY128, params, device="cpu", **kw)
+    gpu = TierEngine(TINY128, on_card, device=cuda, **kw)
+    a, b = cpu.generate(prompts, max_new=16), gpu.generate(prompts, max_new=16)
+    assert [o.token_ids.tolist() for o in a] == [o.token_ids.tolist() for o in b]
+    drafts = [o.token_ids.tolist() for o in a]
+    va = cpu.verify_continue(prompts, drafts, max_new=16)
+    vb = gpu.verify_continue(prompts, drafts, max_new=16)
+    assert [n for _, n in vb] == [n for _, n in va] == [16] * 3

@@ -1,0 +1,81 @@
+"""Import and device guards of the PyTorch port: it and chip_smoke.py import
+neither jax nor adaptive_sd_tpu, and its entry points never fall back to the
+CPU on their own."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from adaptive_sd_tpu_torch.core.device import resolve_device
+from adaptive_sd_tpu_torch.engine import TierEngine
+from adaptive_sd_tpu_torch.models import TINY, init_params_quantized
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parent.parent
+
+_IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+import adaptive_sd_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "adaptive_sd_tpu"
+             or m.startswith("adaptive_sd_tpu."))
+print(len(names), bad)
+"""
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    n_modules, bad = out.stdout.split(maxsplit=1)
+    assert int(n_modules) >= 20
+    assert bad.strip() == "[]"
+
+
+def _no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    params = init_params_quantized(TINY, 0, device="cpu", dtype=torch.float32)
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TierEngine(TINY, params, page_size=16, n_pages=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params_quantized(TINY, 0)
+
+
+def test_engine_refuses_params_on_another_device():
+    params = init_params_quantized(TINY, 0, device="cpu")
+    params["embed"] = params["embed"].to("meta")
+    with pytest.raises(ValueError, match="params live on"):
+        TierEngine(TINY, params, page_size=16, n_pages=8, device="cpu")
+
+
+def test_chip_smoke_refuses_without_cuda(tmp_path):
+    """Without a card the smoke exits non-zero and prints no result line."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout

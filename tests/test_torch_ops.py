@@ -1,0 +1,242 @@
+"""Parity of the PyTorch port's operators with the JAX package on the CPU:
+quantization bytes, the INT8 matmul, paged decode / window attention (held
+against the JAX Pallas kernels in interpret mode), prefill attention and the
+paged KV-cache writers. Inputs are made by numpy from fixed seeds and fed to
+both packages."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from adaptive_sd_tpu.engine.kv_cache import PagedKVCache as JCache
+from adaptive_sd_tpu.models.config import ModelSpec as JSpec
+from adaptive_sd_tpu.ops import attention as jattn
+from adaptive_sd_tpu.ops import matmul_q as jmm
+from adaptive_sd_tpu.ops import quant as jquant
+from adaptive_sd_tpu_torch.engine.kv_cache import PagedKVCache as TCache
+from adaptive_sd_tpu_torch.models.config import ModelSpec as TSpec
+from adaptive_sd_tpu_torch.ops import attention as tattn
+from adaptive_sd_tpu_torch.ops import matmul_q as tmm
+from adaptive_sd_tpu_torch.ops import quant as tquant
+
+torch.set_num_threads(2)
+
+# f32 sums taken in another order (torch vs XLA, or vs a Pallas block
+# schedule): agreement to a few ulps of the f32 result magnitude.
+F32_ATOL = 2e-5
+F32_RTOL = 1e-5
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+class TestQuantBytes:
+    """Both frameworks round half to even: bytes and scales are identical."""
+
+    def test_int8_per_channel(self):
+        w = np.random.default_rng(0).normal(size=(256, 192)).astype(np.float32)
+        j, t = jquant.quantize_int8(jnp.asarray(w)), tquant.quantize_int8(_t(w))
+        np.testing.assert_array_equal(t.q.numpy(), np.asarray(j.q))
+        np.testing.assert_array_equal(t.scale.numpy(), np.asarray(j.scale))
+        assert t.bits == j.bits == 8
+
+    def test_int8_round_half_to_even(self):
+        # max 127 -> scale 1: values at exact .5 boundaries exercise rounding
+        w = np.array([[127.0, 0.5], [1.5, -2.5], [-0.5, 2.5]], np.float32)
+        j, t = jquant.quantize_int8(jnp.asarray(w)), tquant.quantize_int8(_t(w))
+        np.testing.assert_array_equal(t.q.numpy(), np.asarray(j.q))
+
+    def test_kv_int8(self):
+        kv = np.random.default_rng(1).normal(size=(2, 9, 3, 32)).astype(np.float32)
+        jq, js = jquant.quantize_kv_int8(jnp.asarray(kv))
+        tq, ts = tquant.quantize_kv_int8(_t(kv))
+        np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+        np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+    @pytest.mark.parametrize("group_size", [None, 128])
+    def test_int4(self, group_size):
+        w = np.random.default_rng(2).normal(size=(256, 96)).astype(np.float32)
+        j = jquant.quantize_int4(jnp.asarray(w), group_size=group_size)
+        t = tquant.quantize_int4(_t(w), group_size=group_size)
+        np.testing.assert_array_equal(t.q.numpy(), np.asarray(j.q))
+        np.testing.assert_array_equal(t.scale.numpy(), np.asarray(j.scale))
+
+    def test_int4_pack_unpack(self):
+        q = np.random.default_rng(3).integers(-8, 8, size=(64, 40)).astype(np.int8)
+        packed = tquant.pack_int4(_t(q))
+        np.testing.assert_array_equal(packed.numpy(), np.asarray(jquant.pack_int4(jnp.asarray(q))))
+        np.testing.assert_array_equal(tquant.unpack_int4(packed).numpy(), q)
+        lo, hi = tquant.unpack_int4_halves(packed)
+        jlo, jhi = jquant.unpack_int4_halves(jnp.asarray(packed.numpy()))
+        np.testing.assert_array_equal(lo.numpy(), np.asarray(jlo))
+        np.testing.assert_array_equal(hi.numpy(), np.asarray(jhi))
+
+
+class TestQuantizedMatmul:
+    @pytest.mark.parametrize("M", [1, 5, 64])
+    def test_int8_matches_pallas_interpret_and_ref(self, M):
+        rng = np.random.default_rng(10 + M)
+        K, N = 256, 384
+        w = rng.normal(size=(K, N)).astype(np.float32)
+        x = rng.normal(size=(M, K)).astype(np.float32)
+        jt = jquant.quantize_int8(jnp.asarray(w))
+        ker = jmm.quantized_matmul(jnp.asarray(x), jt.q, jt.scale, bits=8, interpret=True)
+        ref = jmm.quantized_matmul_ref(jnp.asarray(x), jt.q, jt.scale, bits=8)
+        out = tmm.quantized_matmul(_t(x), _t(jt.q), _t(jt.scale), bits=8)
+        assert out.dtype == torch.float32 and out.shape == (M, N)
+        tol = dict(rtol=F32_RTOL, atol=F32_ATOL * K ** 0.5)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ker), **tol)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), **tol)
+        np.testing.assert_allclose(
+            tmm.quantized_matmul_ref(_t(x), _t(jt.q), _t(jt.scale)).numpy(), np.asarray(ref), **tol
+        )
+
+    @pytest.mark.parametrize("group_size", [None, 128])
+    def test_int4_ref(self, group_size):
+        rng = np.random.default_rng(20)
+        K, N, M = 256, 128, 3
+        w = rng.normal(size=(K, N)).astype(np.float32)
+        x = rng.normal(size=(M, K)).astype(np.float32)
+        jt = jquant.quantize_int4(jnp.asarray(w), group_size=group_size)
+        ref = jmm.quantized_matmul_ref(jnp.asarray(x), jt.q, jt.scale, bits=4)
+        out = tmm.quantized_matmul(_t(x), _t(jt.q), _t(jt.scale), bits=4)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=F32_RTOL,
+                                   atol=F32_ATOL * K ** 0.5)
+
+    def test_linear_q_leading_dims(self):
+        rng = np.random.default_rng(21)
+        w = rng.normal(size=(64, 96)).astype(np.float32)
+        x = rng.normal(size=(2, 7, 64)).astype(np.float32)
+        jt = jquant.quantize_int8(jnp.asarray(w))
+        ref = jmm.linear_q(jnp.asarray(x), jt, use_pallas=False)
+        out = tmm.linear_q(_t(x), tquant.QuantizedTensor(_t(jt.q), _t(jt.scale), 8))
+        assert out.shape == (2, 7, 96)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=F32_RTOL, atol=2e-4)
+
+    def test_shape_validation(self):
+        with pytest.raises(ValueError):
+            tmm.quantized_matmul(torch.zeros(2, 64), torch.zeros(128, 32, dtype=torch.int8),
+                                 torch.ones(32))
+
+    def test_split_k_covers_k(self):
+        for M, N, K in [(4, 3584, 18944), (4, 152064, 5120), (300, 5120, 13824), (1, 16, 100)]:
+            splits, k_per = tmm._split_k(M, N, K, 132)
+            assert k_per % 128 == 0 and splits * k_per >= K > (splits - 1) * k_per
+
+
+def _paged_inputs(rng, n_kv, n_pages, page, D):
+    kq = rng.integers(-127, 128, (n_kv, n_pages, page, D)).astype(np.int8)
+    ks = rng.uniform(0.001, 0.02, (n_kv, n_pages, 1, page)).astype(np.float32)
+    vq = rng.integers(-127, 128, (n_kv, n_pages, page, D)).astype(np.int8)
+    vs = rng.uniform(0.001, 0.02, (n_kv, n_pages, 1, page)).astype(np.float32)
+    return kq, ks, vq, vs
+
+
+class TestPagedAttention:
+    """Plain versions against the JAX Pallas kernels run in interpret mode.
+    Same f32 math, different sum order: tight f32 tolerance."""
+
+    @pytest.mark.parametrize("G", [2, 3])
+    def test_decode_ref_matches_pallas_kernel(self, G):
+        rng = np.random.default_rng(30 + G)
+        B, n_kv, D, page, n_pages, maxp = 3, 2, 64, 16, 9, 4
+        kq, ks, vq, vs = _paged_inputs(rng, n_kv, n_pages, page, D)
+        q = rng.normal(size=(B, n_kv, G, D)).astype(np.float32)
+        tables = np.array([[0, 3, 5, 7], [8, 1, 2, 4], [n_pages] * maxp], np.int32)
+        lens = np.array([37, 17, 1], np.int32)  # crosses pages; lane 2 parked on the sentinel
+        args = (q, kq, ks, vq, vs, tables, lens)
+        ker = jattn.paged_attention(*map(jnp.asarray, args), sm_scale=D ** -0.5, interpret=True)
+        out = tattn.paged_attention(*map(_t, args), sm_scale=D ** -0.5)
+        ref = tattn.paged_attention_ref(*map(_t, args), sm_scale=D ** -0.5)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ker), rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(ref.numpy(), np.asarray(ker), rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("G", [2, 5])
+    def test_window_ref_matches_pallas_kernel(self, G):
+        rng = np.random.default_rng(40 + G)
+        B, n_kv, D, page, n_pages, maxp, W = 3, 2, 64, 16, 10, 4, 6
+        kq, ks, vq, vs = _paged_inputs(rng, n_kv, n_pages, page, D)
+        q = rng.normal(size=(B, n_kv, W * G, D)).astype(np.float32)
+        tables = np.array([[0, 3, 5, 7], [9, 1, 2, 4], [n_pages] * maxp], np.int32)
+        offsets = np.array([13, 32, 0], np.int32)
+        win_lens = np.array([W, 3, 1], np.int32)   # row 1 has padding rows; row 2 parked
+        ctx = offsets + win_lens
+        args = (q, kq, ks, vq, vs, tables, ctx, offsets)
+        ker = np.asarray(jattn.paged_window_attention(
+            *map(jnp.asarray, args), group=G, sm_scale=D ** -0.5, interpret=True))
+        out = tattn.paged_window_attention(*map(_t, args), group=G, sm_scale=D ** -0.5).numpy()
+        for b in range(B):  # only valid rows: padding rows are never read downstream
+            r = win_lens[b] * G
+            np.testing.assert_allclose(out[b, :, :r], ker[b, :, :r], rtol=1e-5, atol=1e-5)
+        assert np.isfinite(out).all()
+
+    def test_window_of_one_equals_decode(self):
+        rng = np.random.default_rng(50)
+        B, n_kv, G, D, page, n_pages = 2, 2, 3, 32, 16, 6
+        kq, ks, vq, vs = _paged_inputs(rng, n_kv, n_pages, page, D)
+        q = _t(rng.normal(size=(B, n_kv, G, D)).astype(np.float32))
+        tables = _t(np.array([[0, 1, 2], [3, 4, 5]], np.int32))
+        pos = _t(np.array([9, 40], np.int32))
+        pages = tuple(map(_t, (kq, ks, vq, vs)))
+        dec = tattn.paged_attention(q, *pages, tables, pos + 1, sm_scale=0.2)
+        win = tattn.paged_window_attention(q, *pages, tables, pos + 1, pos, group=G, sm_scale=0.2)
+        np.testing.assert_allclose(win.numpy(), dec.numpy(), rtol=1e-6, atol=1e-6)
+
+
+class TestPrefillAttention:
+    def test_matches_jax_and_ref(self):
+        rng = np.random.default_rng(60)
+        B, S, H, n_kv, D = 2, 12, 6, 2, 16
+        q = rng.normal(size=(B, S, H, D)).astype(np.float32)
+        k = rng.normal(size=(B, S, n_kv, D)).astype(np.float32)
+        v = rng.normal(size=(B, S, n_kv, D)).astype(np.float32)
+        lens = np.array([12, 7], np.int32)
+        j = np.asarray(jattn.prefill_attention(*map(jnp.asarray, (q, k, v)), sm_scale=0.25,
+                                               seq_lens=jnp.asarray(lens)))
+        out = tattn.prefill_attention(*map(_t, (q, k, v)), sm_scale=0.25, seq_lens=_t(lens))
+        ref = tattn.prefill_attention_ref(*map(_t, (q, k, v)), sm_scale=0.25, seq_lens=_t(lens))
+        for b in range(B):  # valid query rows only
+            n = lens[b]
+            np.testing.assert_allclose(out.numpy()[b, :n], j[b, :n], rtol=1e-5, atol=1e-5)
+            np.testing.assert_allclose(ref.numpy()[b, :n], j[b, :n], rtol=1e-5, atol=1e-5)
+
+
+class TestKVCacheWriters:
+    """Page bytes and scales after prefill, decode and window writes,
+    including padding rows routed to the sentinel page (dropped)."""
+
+    def test_pages_identical_after_prefill_decode_window(self):
+        rng = np.random.default_rng(70)
+        args = ("t", 256, 64, 1, 4, 2, 16, 128)
+        jspec, tspec = JSpec(*args), TSpec(*args)
+        n_pages, page, B, S, W = 8, 16, 3, 20, 5
+        jc = JCache.create(jspec, n_pages, page)
+        tc = TCache.create(tspec, n_pages, page, device="cpu")
+        tables = np.array([[0, 1, 2, 3], [4, 5, 6, 7], [n_pages] * 4], np.int32)
+
+        def kv(*shape):
+            return (rng.normal(size=shape).astype(np.float32),
+                    rng.normal(size=shape).astype(np.float32))
+
+        k, v = kv(B, S, 2, 16)
+        lens = np.array([20, 9, 4], np.int32)   # rows past seq_len and row 2 dropped
+        jc = jc.write_prefill(0, jnp.asarray(k), jnp.asarray(v), jnp.asarray(tables),
+                              jnp.asarray(lens))
+        tc.write_prefill(0, _t(k), _t(v), _t(tables), _t(lens))
+        k, v = kv(B, 2, 16)
+        pos = np.array([20, 9, 4], np.int32)
+        jc = jc.write_decode(0, jnp.asarray(k), jnp.asarray(v), jnp.asarray(tables),
+                             jnp.asarray(pos))
+        tc.write_decode(0, _t(k), _t(v), _t(tables), _t(pos))
+        k, v = kv(B, W, 2, 16)
+        offs, wl = np.array([21, 10, 0], np.int32), np.array([5, 2, 1], np.int32)
+        jc = jc.write_window(0, jnp.asarray(k), jnp.asarray(v), jnp.asarray(tables),
+                             jnp.asarray(offs), jnp.asarray(wl))
+        tc.write_window(0, _t(k), _t(v), _t(tables), _t(offs), _t(wl))
+        for name in ("k_pages", "k_scales", "v_pages", "v_scales"):
+            np.testing.assert_array_equal(getattr(tc, name)[0].numpy(),
+                                          np.asarray(getattr(jc, name)[0]), err_msg=name)
+        assert tc.k_pages[0].abs().sum() > 0
