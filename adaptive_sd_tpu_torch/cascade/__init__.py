@@ -1,5 +1,7 @@
-"""Text stages over the port's tier engines."""
+"""The cascade: text stages, the response cache and the serving pipeline."""
 
-from .stages import EngineTextStage, StageManager, TextStage
+from .cache_manager import CacheEntry, CascadeCacheManager
+from .pipeline import AdaptiveCascadePipeline, PipelineConfig
+from .stages import EngineTextStage, MockStage, StageManager, TextStage
 
-__all__ = ["EngineTextStage", "StageManager", "TextStage"]
+__all__ = [name for name in dir() if not name.startswith("_")]

@@ -168,11 +168,14 @@ class TierEngine:
         return sample(logits, gen, temperature=temperature, top_p=top_p), ()
 
     def _decode_loop(self, first, q_cur, seq_lens, block_tables, gen, *, budget, max_new,
-                     temperature, top_p, return_topk):
+                     temperature, top_p, return_topk, decide=None):
         """Decode tail shared by generate paths (JAX ``_decode_loop``):
         write sampled tokens until budget/eos. ``seq_lens`` [B] are the
         context lengths when ``first`` was sampled. Returns host arrays
-        (out_toks [B, max_new], out_lps, gen_len [B], q_bufs)."""
+        (out_toks [B, max_new], out_lps, gen_len [B], q_bufs). ``decide``
+        (out_lps [B, max_new], gen_len [B], both on the device) -> tensors
+        runs on the device before anything is fetched; its results come back
+        as a fifth item, fetched with the tokens."""
         B = seq_lens.shape[0]
         active = np.ones(B, bool)
         gen_len = np.zeros(B, np.int32)
@@ -201,6 +204,12 @@ class TierEngine:
 
         n = len(toks)
         wmask = np.stack(writes, axis=1)                                  # [B, n]
+        decided = None
+        if decide is not None:
+            wmask_d = self._t(wmask)
+            lps_d = torch.zeros((B, max_new), dtype=torch.float32, device=self.device)
+            lps_d[:, :n] = torch.where(wmask_d, torch.stack(lps, 1).float(), 0.0)
+            decided = decide(lps_d, wmask_d.sum(dim=1))
         out_toks = np.full((B, max_new), PAD_ID, np.int32)
         out_lps = np.zeros((B, max_new), np.float32)
         out_toks[:, :n] = np.where(wmask, torch.stack(toks, 1).cpu().numpy(), PAD_ID)
@@ -214,6 +223,8 @@ class TierEngine:
             qp[:, :n] = np.where(wmask[..., None],
                                  torch.stack([q[1] for q in q_rows], 1).cpu().numpy(), 0.0)
             q_bufs = (qi, qp)
+        if decided is not None:
+            return out_toks, out_lps, gen_len, q_bufs, tuple(d.cpu().numpy() for d in decided)
         return out_toks, out_lps, gen_len, q_bufs
 
     def _outputs(self, out_toks, out_lps, gen_len, q_bufs, B, dt, return_topk):
@@ -255,6 +266,14 @@ class TierEngine:
                 prompts, max_new=max_new, temperature=temperature, top_p=top_p,
                 seed=seed, return_topk=return_topk,
             )
+        out, dt = self._generate_uncached(prompts, max_new, temperature, top_p, seed,
+                                          return_topk)
+        return self._outputs(*out, len(prompts), dt, return_topk)
+
+    def _generate_uncached(self, prompts, max_new, temperature, top_p, seed, return_topk,
+                           decide=None):
+        """Full prefill + decode loop without the prefix cache. Returns
+        (the decode loop's host arrays, seconds)."""
         B = len(prompts)
         Bb = _bucket_batch(B)
         lens = [len(p) for p in prompts]
@@ -280,13 +299,13 @@ class TierEngine:
             first, q_cur = self._first_token(logits, gen, temperature, top_p, return_topk)
             out = self._decode_loop(
                 first, q_cur, seq_lens_t, tables_t, gen, budget=max_new, max_new=max_new_b,
-                temperature=temperature, top_p=top_p, return_topk=return_topk,
+                temperature=temperature, top_p=top_p, return_topk=return_topk, decide=decide,
             )
             dt = time.perf_counter() - t0
         finally:
             for b in range(Bb):
                 self.allocator.free_request(f"{rid}_{b}")
-        return self._outputs(*out, B, dt, return_topk)
+        return out, dt
 
     def _generate_cached(self, prompts, *, max_new, temperature, top_p, seed, return_topk):
         """Prefix-cache generation: acquire cached page-aligned prompt
@@ -345,6 +364,94 @@ class TierEngine:
         for _, _, held, _fill in acqs:
             self.prefix_cache.release(held)
         return self._outputs(*out, B, dt, return_topk)
+
+    # single steps and streaming -----------------------------------------------------
+    def prefill_batch(self, tokens: torch.Tensor, seq_lens: torch.Tensor,
+                      block_tables: torch.Tensor) -> torch.Tensor:
+        """One prefill over caller-managed pages; returns last-token logits."""
+        logits, _ = prefill(self.params, self.spec, tokens, seq_lens, self.cache, block_tables)
+        return logits
+
+    def decode_batch(self, tokens: torch.Tensor, positions: torch.Tensor,
+                     block_tables: torch.Tensor) -> torch.Tensor:
+        """One decode step over caller-managed pages; returns logits [B, V]."""
+        logits, _ = decode_step(self.params, self.spec, tokens, positions, self.cache,
+                                block_tables)
+        return logits
+
+    def stream(
+        self,
+        prompt: Sequence[int],
+        *,
+        max_new: int = 128,
+        temperature: float = 0.0,
+        top_p: float = 1.0,
+        seed: int = 0,
+    ):
+        """Token-by-token generator (reference ModelStage.generate_stream
+        contract, src/core/interfaces.py:81): one step and one fetch per
+        token, inherent to streaming. Yields (token_id, logprob)."""
+        S = _bucket_len(len(prompt), min(64, self.page_size))
+        max_pages = (S + max_new + self.page_size - 1) // self.page_size + 1
+        rid = f"str{id(self)}_{time.monotonic_ns()}"
+        pages = self._alloc(rid, max_pages)
+        try:
+            tokens = np.full((1, S), PAD_ID, np.int32)
+            tokens[0, : len(prompt)] = np.asarray(prompt, np.int32)
+            tables = self._t(np.asarray(pages, np.int32)[None, :])
+            logits = self.prefill_batch(
+                self._t(tokens), self._t(np.asarray([len(prompt)], np.int32)), tables
+            )
+            gen = self._generator(seed)
+            pos = len(prompt)
+            for step in range(max_new):
+                res = sample(logits, gen, temperature=temperature, top_p=top_p)
+                tok = int(res.token[0])
+                yield tok, float(res.logprob[0])
+                if self.eos_id is not None and tok == self.eos_id:
+                    return
+                if step == max_new - 1:
+                    return
+                logits = self.decode_batch(
+                    self._t(np.asarray([tok], np.int32)), self._t(np.asarray([pos], np.int32)),
+                    tables,
+                )
+                pos += 1
+        finally:
+            self.allocator.free_request(rid)
+
+    # on-device stopping ---------------------------------------------------------------
+    def generate_with_policy(
+        self,
+        prompts: Sequence[Sequence[int]],
+        policy,                     # predict.inline.InlinePolicyParams on this device
+        stage_index: int,
+        *,
+        max_new: int = 128,
+        temperature: float = 0.0,
+        top_p: float = 1.0,
+        seed: int = 0,
+        return_topk: int = 0,
+    ) -> tuple[list[GenerationOutput], np.ndarray, np.ndarray]:
+        """Draft + inline stopping: the quality predictor and the DP rule run
+        on the device right after the decode loop, on the logprob buffer that
+        never left it; the escalation flags are fetched together with the
+        tokens (no host round-trip in the decision path). Like the JAX
+        engine, this path prefills whole prompts (no prefix cache). Returns
+        (outputs, escalate [B] bool, p_hat [B])."""
+        from ..predict.inline import inline_decision
+
+        if return_topk and temperature <= 0.0:
+            return_topk = 0
+        B = len(prompts)
+
+        def decide(out_lps, gen_len):
+            return inline_decision(policy, out_lps, gen_len, stage_index)
+
+        (out_toks, out_lps, gen_len, q_bufs, (escalate, p_hat)), dt = self._generate_uncached(
+            prompts, max_new, temperature, top_p, seed, return_topk, decide=decide)
+        results = self._outputs(out_toks, out_lps, gen_len, q_bufs, B, dt, return_topk)
+        return results, escalate[:B].astype(bool), p_hat[:B]
 
     # speculative escalation -------------------------------------------------------
     def verify_continue(

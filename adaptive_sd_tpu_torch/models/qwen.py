@@ -88,11 +88,13 @@ def init_params_quantized(
     fuse: bool = True,
     dtype=torch.bfloat16,
     device=None,
+    group_size: Optional[int] = 128,
 ) -> Params:
     """Random weights with realistic scales, made, fused and quantized ONE
     LAYER AT A TIME on ``device`` (default CUDA), so peak memory is one raw
     layer plus the quantized model. ``generator`` is a ``torch.Generator`` on
-    that device, or an int seed for one."""
+    that device, or an int seed for one. ``group_size`` is the INT4 scale
+    group (``None``: one scale per output channel)."""
     device = resolve_device(device)
     if isinstance(generator, int):
         generator = torch.Generator(device=device).manual_seed(generator)
@@ -100,7 +102,7 @@ def init_params_quantized(
     def quant(w):
         if bits == 16:
             return w
-        return _int4(w) if bits == 4 else quantize_int8(w)
+        return _int4(w, group_size) if bits == 4 else quantize_int8(w)
 
     def dense(shape, fan_in):
         w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)

@@ -27,6 +27,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # kernel name -> (source, C symbol, argtypes)
 KERNELS = {
     "int8_matmul": ("matmul_int8.cu", "asd_int8_matmul", [_P] * 5 + [_I] * 7 + [_P]),
+    "int4_matmul": ("matmul_int4.cu", "asd_int4_matmul", [_P] * 5 + [_I] * 9 + [_P]),
     "paged_decode": ("paged_decode.cu", "asd_paged_decode", [_P] * 8 + [_I] * 7 + [_F, _I, _P]),
     "paged_window": ("paged_window.cu", "asd_paged_window", [_P] * 9 + [_I] * 8 + [_F, _I, _P]),
 }
@@ -39,10 +40,17 @@ NVCC_FLAGS = [
 
 class LaunchCounter:
     """Launch count of one kernel wrapper: ``launches`` grows by one where
-    the wrapper launches its CUDA kernel, and nowhere else."""
+    the wrapper launches its CUDA kernel, and nowhere else. Set ``shapes`` to
+    a set to collect the distinct shapes the kernel was launched at."""
 
     def __init__(self) -> None:
         self.launches = 0
+        self.shapes: set | None = None
+
+    def launched(self, *shape) -> None:
+        self.launches += 1
+        if self.shapes is not None:
+            self.shapes.add(shape)
 
 
 _lock = threading.Lock()

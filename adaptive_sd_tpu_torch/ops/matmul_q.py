@@ -9,7 +9,11 @@ applied after the reduction. Dispatch mirrors the JAX wrapper
   weight, as JAX hands that case to XLA outside any Pallas kernel.
 * CUDA, INT8, ``M < 512`` (decode, short windows): the hand-written Hopper
   kernel ``csrc/matmul_int8.cu``, whatever N and K are (it masks ragged
-  edges). INT4 on CUDA is not ported yet and raises.
+  edges).
+* CUDA, INT4 (per-channel ``scale [N]`` or grouped ``scale [K/gs, N]``): the
+  hand-written Hopper kernel ``csrc/matmul_int4.cu`` at every M, as the JAX
+  wrapper keeps INT4 in its Pallas kernels at every M. It launches or raises;
+  nothing on a CUDA tensor leads to the plain version.
 """
 
 from __future__ import annotations
@@ -26,7 +30,12 @@ _BN = 128     # output columns per kernel block (csrc/matmul_int8.cu kBN)
 _KTILE = 128  # k-rows per kernel step (csrc/matmul_int8.cu kKTile)
 
 
+_INT4_SMALL_M = 16  # M up to which INT4 takes the weight-streaming kernel
+_INT4_RTILE = 128   # packed rows per step of that kernel (csrc/matmul_int4.cu sKTile)
+
 int8_matmul_counter = _kernels.LaunchCounter()
+int4_matmul_counter = _kernels.LaunchCounter()   # per-channel layout (scale [N])
+int4g_matmul_counter = _kernels.LaunchCounter()  # grouped layout (scale [K/gs, N])
 
 
 def quantized_matmul_ref(
@@ -90,7 +99,66 @@ def int8_matmul_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> t
         M, N, K, splits, k_per, int(x.dtype == torch.bfloat16), vec, _kernels.stream_of(x),
     )
     _kernels.check(rc, "int8 matmul")
-    int8_matmul_counter.launches += 1
+    int8_matmul_counter.launched(M, K, N, 0, x.dtype)
+    return out
+
+
+def _int4_plan(M: int, N: int, K: int, gs: int, n_sm: int) -> tuple[int, int, int]:
+    """(large, splits, rows_per_split) for the INT4 kernel. ``large`` 0: the
+    weight-streaming kernel (M <= 16), its packed rows split across blocks
+    until about four blocks per SM are in flight, every split a multiple of
+    the 128-row step and of the group size, so that a split boundary falls on
+    a group boundary. ``large`` 1: the tiled kernel, which splits nothing."""
+    Kh = K // 2
+    if M > _INT4_SMALL_M:
+        return 1, 1, Kh
+    bm = 1 if M <= 1 else 2 if M <= 2 else 4 if M <= 4 else 8
+    blocks = math.ceil(N / _BN) * math.ceil(M / bm)
+    unit = math.lcm(_INT4_RTILE, gs) if gs else _INT4_RTILE
+    splits = max(1, min(math.ceil(4 * n_sm / blocks), math.ceil(Kh / unit)))
+    r_per = math.ceil(math.ceil(Kh / splits) / unit) * unit
+    return 0, math.ceil(Kh / r_per), r_per
+
+
+def int4_matmul_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Launch the Hopper INT4 kernel: x [M, K] bf16/f32 CUDA, q [K/2, N]
+    split-half packed int8, scale f32 [N] (per-channel) or [K/gs, N]
+    (grouped) -> [M, N] in x.dtype."""
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"int4 matmul kernel takes bf16/f32 x, got {x.dtype}")
+    if q.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError(f"expected packed int8 q and f32 scale, got {q.dtype}, {scale.dtype}")
+    if not (x.is_cuda and q.is_cuda and scale.is_cuda):
+        raise ValueError("int4_matmul_cuda takes CUDA tensors")
+    x, q, scale = x.contiguous(), q.contiguous(), scale.contiguous()
+    M, K = x.shape
+    Kh, N = q.shape
+    if K != 2 * Kh:
+        raise ValueError(f"K mismatch: x has {K}, q encodes {2 * Kh}")
+    if scale.ndim == 2:
+        if scale.shape[1] != N or scale.shape[0] == 0 or K % scale.shape[0]:
+            raise ValueError(f"grouped scale {tuple(scale.shape)} does not fit K={K}, N={N}")
+        gs = K // scale.shape[0]
+    elif scale.shape == (N,):
+        gs = 0
+    else:
+        raise ValueError(f"scale {tuple(scale.shape)} fits neither [N] nor [K/gs, N]")
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if M == 0:
+        return out
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    large, splits, r_per = _int4_plan(M, N, K, gs, n_sm)
+    partial = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+               if splits > 1 else None)
+    vec = int(N % 16 == 0 and q.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0)
+    rc = _kernels.function("int4_matmul")(
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        partial.data_ptr() if partial is not None else None,
+        M, N, K, gs, splits, r_per, int(x.dtype == torch.bfloat16), vec, large,
+        _kernels.stream_of(x),
+    )
+    _kernels.check(rc, "int4 matmul")
+    (int4g_matmul_counter if gs else int4_matmul_counter).launched(M, K, N, gs, x.dtype)
     return out
 
 
@@ -98,8 +166,8 @@ def quantized_matmul(
     x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *, bits: int = 8, out_dtype=None
 ) -> torch.Tensor:
     """``x @ dequant(q, scale)``. x: [M, K]; q: [K, N] int8 (bits=8) or
-    [K//2, N] packed (bits=4); scale: [N] f32. Returns [M, N] in
-    ``out_dtype`` (default x.dtype)."""
+    [K//2, N] packed (bits=4); scale: [N] f32, or [K/gs, N] for grouped
+    INT4. Returns [M, N] in ``out_dtype`` (default x.dtype)."""
     if x.ndim != 2 or q.ndim != 2:
         raise ValueError(f"expected 2-D x and q, got {tuple(x.shape)} and {tuple(q.shape)}")
     M, K = x.shape
@@ -109,8 +177,8 @@ def quantized_matmul(
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return quantized_matmul_ref(x, q, scale, bits=bits, out_dtype=out_dtype)
-    if bits != 8:
-        raise NotImplementedError("INT4 matmul has no CUDA kernel in the port yet")
+    if bits == 4:
+        return int4_matmul_cuda(x, q, scale).to(out_dtype)
     if M >= BM_CAP:
         return _matmul_dequant(x, q, scale, out_dtype)
     return int8_matmul_cuda(x, q, scale).to(out_dtype)

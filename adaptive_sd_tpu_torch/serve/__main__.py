@@ -1,0 +1,78 @@
+"""Start the port's HTTP server:
+
+    python -m adaptive_sd_tpu_torch.serve --mock --port 8200
+    python -m adaptive_sd_tpu_torch.serve --synthetic --device cpu --port 8200
+
+``--mock`` serves canned stages (no model, no device). ``--synthetic`` puts
+three tiny random tiers (INT8 -> INT4 -> INT4) behind the same API, on CUDA
+unless ``--device cpu`` is given (a rehearsal: on CPU tensors every kernel
+wrapper takes its plain version). The predictor has seeded random weights;
+load a trained one with ``--predictor file.npz`` (a file saved by either
+package's ``MLPQualityPredictor.save``).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def build_pipeline(args):
+    import torch
+
+    from ..cascade import (
+        AdaptiveCascadePipeline,
+        EngineTextStage,
+        MockStage,
+        PipelineConfig,
+        StageManager,
+    )
+    from ..engine import TierEngine
+    from ..models import TINY128, init_params_quantized
+    from ..predict import MLPQualityPredictor
+
+    predictor = (MLPQualityPredictor.load(args.predictor) if args.predictor
+                 else MLPQualityPredictor(n_stages=3, seed=args.seed))
+    costs = (1.0, 2.0, 4.5)
+    if args.mock:
+        stages = [MockStage(f"tier{i}", cost_per_token=c, capacity=cap)
+                  for i, (c, cap) in enumerate(zip(costs, (0.5, 0.75, 0.97)))]
+    else:
+        stages = []
+        for i, bits in enumerate((8, 4, 4)):
+            params = init_params_quantized(TINY128, args.seed + i, bits=bits, device=args.device,
+                                           dtype=torch.float32)
+            engine = TierEngine(TINY128, params, name=f"tier{i}", page_size=16, n_pages=512,
+                                device=args.device, enable_prefix_cache=i > 0)
+            stages.append(EngineTextStage(
+                engine,
+                lambda text: [(ord(c) % (TINY128.vocab_size - 1)) + 1 for c in text[:256]] or [1],
+                lambda ids: " ".join(str(int(t)) for t in ids),
+                cost_per_token=costs[i], stage_index=i))
+    return AdaptiveCascadePipeline(StageManager(stages), predictor,
+                                   PipelineConfig(lam=args.lam, max_new_tokens=args.max_new))
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(prog="python -m adaptive_sd_tpu_torch.serve",
+                                 description=__doc__.split("\n\n")[0])
+    mode = ap.add_mutually_exclusive_group(required=True)
+    mode.add_argument("--mock", action="store_true", help="canned stages, no model")
+    mode.add_argument("--synthetic", action="store_true", help="tiny random tiers")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8200)
+    ap.add_argument("--lam", type=float, default=1.0)
+    ap.add_argument("--max-new", type=int, default=64)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--predictor", default=None, help=".npz saved by MLPQualityPredictor.save")
+    ap.add_argument("--api-key", default=None)
+    args = ap.parse_args(argv)
+
+    from .server import run_server
+
+    pipeline = build_pipeline(args)
+    run_server(pipeline, host=args.host, port=args.port, api_key=args.api_key)
+
+
+if __name__ == "__main__":
+    main()

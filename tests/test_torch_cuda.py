@@ -8,10 +8,11 @@ import pytest
 import torch
 
 from adaptive_sd_tpu_torch.engine import TierEngine
+from adaptive_sd_tpu_torch.engine import decode as D
 from adaptive_sd_tpu_torch.models import TINY128, init_params_quantized
 from adaptive_sd_tpu_torch.ops import attention as A
 from adaptive_sd_tpu_torch.ops import matmul_q as MQ
-from adaptive_sd_tpu_torch.ops.quant import quantize_int8
+from adaptive_sd_tpu_torch.ops.quant import quantize_int4, quantize_int8
 
 pytestmark = pytest.mark.cuda
 
@@ -40,6 +41,44 @@ def test_int8_matmul_kernel_matches_plain(cuda, M, K, N, dtype):
     # f32 sums in another order; bf16 outputs may differ by one rounding step
     tol = dict(rtol=1e-5, atol=1e-4) if dtype == torch.float32 else dict(rtol=1e-2, atol=2e-2)
     torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+# (M, K, N, group_size): decode and large M, ragged N and K, a group that
+# straddles the two packed halves (K=384, gs=128), a group smaller than the
+# kernel's K step (gs=32), and per-channel scales (gs=None)
+_INT4_SHAPES = [
+    (1, 256, 384, 128), (4, 1024, 512, 128), (4, 384, 200, 128), (7, 1000, 4099, None),
+    (13, 768, 130, 32), (4, 4096, 256, 256), (4, 512, 256, None), (33, 384, 200, 128),
+    (100, 512, 384, 128), (300, 1000, 130, None), (300, 768, 256, 32), (1100, 1024, 640, 128),
+]
+
+
+@pytest.mark.parametrize("M,K,N,gs", _INT4_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int4_matmul_kernel_matches_plain(cuda, M, K, N, gs, dtype):
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    t = quantize_int4(torch.randn(K, N, generator=g, device=cuda), group_size=gs)
+    x = torch.randn(M, K, generator=g, device=cuda).to(dtype)
+    counter = MQ.int4g_matmul_counter if gs else MQ.int4_matmul_counter
+    before = counter.launches
+    out = MQ.quantized_matmul(x, t.q, t.scale, bits=4)
+    ref = MQ.quantized_matmul_ref(x, t.q, t.scale, bits=4)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    # f32 sums in another order; bf16 outputs may differ by one rounding step
+    tol = dict(rtol=1e-5, atol=1e-4) if dtype == torch.float32 else dict(rtol=1e-2, atol=2e-2)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+def test_int4_matmul_offset_views(cuda):
+    """Unaligned q and scale views take the kernel's scalar-load path."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    t = quantize_int4(torch.randn(512, 257, generator=g, device=cuda), group_size=128)
+    q, scale = t.q[:, 1:], t.scale[:, 1:]
+    x = torch.randn(4, 512, generator=g, device=cuda)
+    out = MQ.quantized_matmul(x, q, scale, bits=4)
+    ref = MQ.quantized_matmul_ref(x, q.contiguous(), scale.contiguous(), bits=4)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-4)
 
 
 def _pages(g, n_kv, n_pages, page, D, dev):
@@ -90,10 +129,16 @@ def test_paged_window_kernel_matches_plain(cuda, G, W):
         torch.testing.assert_close(out[b, :, :r], ref[b, :, :r], rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("prefix_cache", [False, True])
-def test_engine_on_card_matches_cpu(cuda, prefix_cache):
-    """f32 TINY128 weights: the kernels' engine gives the plain engine's tokens."""
-    params = init_params_quantized(TINY128, 0, device="cpu", dtype=torch.float32)
+def _engine_on_card_matches_cpu(cuda, params, prefix_cache, monkeypatch, accept_all):
+    """Greedy tokens and accepted counts of the engine on the card against the
+    engine on the CPU. Over the prefix cache the verify window reads the INT8
+    pages that decoding read, so each engine accepts its own output in full.
+    Without it the verify pass attends exact K/V while the draft was decoded
+    over INT8 K/V, so either engine may reject a token of its own; then the
+    card must still reject where the CPU does, wherever the CPU's verify
+    logits are not near a tie (top-2 gap above 1e-3 and above twice the
+    engines' largest logit difference, about 2e-5 without the cache: f32 sums
+    in another order)."""
     on_card = {k: v for k, v in params.items()}
     on_card["embed"] = params["embed"].to(cuda)
     on_card["final_norm"] = params["final_norm"].to(cuda)
@@ -107,6 +152,49 @@ def test_engine_on_card_matches_cpu(cuda, prefix_cache):
     a, b = cpu.generate(prompts, max_new=16), gpu.generate(prompts, max_new=16)
     assert [o.token_ids.tolist() for o in a] == [o.token_ids.tolist() for o in b]
     drafts = [o.token_ids.tolist() for o in a]
-    va = cpu.verify_continue(prompts, drafts, max_new=16)
-    vb = gpu.verify_continue(prompts, drafts, max_new=16)
-    assert [n for _, n in vb] == [n for _, n in va] == [16] * 3
+
+    verify_logits = {}   # device type -> the verify pass's logits [B, draft + 1, V]
+    real = D.logits_at
+
+    def spy(p, spec, h):
+        out = real(p, spec, h)
+        verify_logits[h.device.type] = out.detach().float().cpu()
+        return out
+
+    monkeypatch.setattr(D, "logits_at", spy)
+    n_cpu = [n for _, n in cpu.verify_continue(prompts, drafts, max_new=16)]
+    n_card = [n for _, n in gpu.verify_continue(prompts, drafts, max_new=16)]
+    lc, lg = verify_logits["cpu"][:3], verify_logits["cuda"][:3]
+    # over the prefix cache a sum-order difference now and then moves an INT8
+    # K/V value across a rounding boundary, which moves a logit by up to ~5e-3
+    d = float((lc - lg).abs().max())
+    assert d < (2e-2 if prefix_cache else 1e-3)
+    tie = max(1e-3, 2 * d)                                # a flip needs a gap below 2 d
+    top2 = torch.topk(lc, 2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]                     # [3, draft + 1]
+    for i in range(3):
+        decided = gap[i, : min(n_cpu[i] + 1, 16)]         # the positions n_acc depends on
+        if float(decided.min()) > tie:
+            assert n_card[i] == n_cpu[i], (i, n_card, n_cpu, decided.tolist())
+    if accept_all:
+        assert n_card == n_cpu == [16] * 3
+
+
+@pytest.mark.parametrize("prefix_cache", [False, True])
+def test_engine_on_card_matches_cpu(cuda, prefix_cache, monkeypatch):
+    """f32 TINY128 weights: the kernels' engine gives the plain engine's tokens,
+    and with these INT8 weights both accept in full in either mode."""
+    params = init_params_quantized(TINY128, 0, device="cpu", dtype=torch.float32)
+    _engine_on_card_matches_cpu(cuda, params, prefix_cache, monkeypatch, accept_all=True)
+
+
+@pytest.mark.parametrize("prefix_cache", [False, True])
+@pytest.mark.parametrize("group_size", [128, None])
+def test_int4_engine_on_card_matches_cpu(cuda, group_size, prefix_cache, monkeypatch):
+    """The same with INT4 weights, grouped and per-channel, with and without
+    the prefix cache (without it the verify window of 4 x 320 rows goes
+    through the large-M kernel)."""
+    params = init_params_quantized(TINY128, 0, device="cpu", dtype=torch.float32, bits=4,
+                                   group_size=group_size)
+    _engine_on_card_matches_cpu(cuda, params, prefix_cache, monkeypatch,
+                                accept_all=prefix_cache)

@@ -1,6 +1,7 @@
 """Import and device guards of the PyTorch port: it and chip_smoke.py import
-neither jax nor adaptive_sd_tpu, and its entry points never fall back to the
-CPU on their own."""
+neither jax nor adaptive_sd_tpu (and chip_smoke.py neither aiohttp nor
+pydantic), its entry points never fall back to the CPU on their own, and a
+tensor that is not on the CPU never reaches a kernel's plain version."""
 
 import os
 import subprocess
@@ -31,6 +32,15 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 """
 
+_IMPORT_SMOKE = r"""
+import sys
+import chip_smoke
+import adaptive_sd_tpu_torch
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "adaptive_sd_tpu", "aiohttp", "pydantic"))
+print(bad)
+"""
+
 
 def test_port_and_chip_smoke_import_no_jax():
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -38,8 +48,42 @@ def test_port_and_chip_smoke_import_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 20
+    assert int(n_modules) >= 38
     assert bad.strip() == "[]"
+
+
+def test_chip_smoke_and_package_root_import_no_http_stack():
+    """The HTTP layer alone needs aiohttp and pydantic; neither the package
+    root nor chip_smoke.py pulls it in."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _IMPORT_SMOKE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("grouped", [False, True])
+def test_int4_off_cpu_has_no_plain_version_branch(monkeypatch, grouped):
+    """A tensor that is not on the CPU goes to the CUDA wrapper and nowhere
+    else: when that raises, ``quantized_matmul(bits=4)`` raises, and the
+    plain version is never called."""
+    from adaptive_sd_tpu_torch.ops import matmul_q as MQ
+
+    def boom(*a, **k):
+        raise RuntimeError("int4 kernel failed to launch")
+
+    def never(*a, **k):
+        raise AssertionError("the plain version was reached off the CPU")
+
+    monkeypatch.setattr(MQ, "int4_matmul_cuda", boom)
+    monkeypatch.setattr(MQ, "quantized_matmul_ref", never)
+    x = torch.empty(4, 256, device="meta")
+    q = torch.empty(128, 64, dtype=torch.int8, device="meta")
+    scale = torch.empty((2, 64) if grouped else (64,), device="meta")
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        MQ.quantized_matmul(x, q, scale, bits=4)
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        MQ.quantized_matmul(torch.empty(600, 256, device="meta"), q, scale, bits=4)  # prefill M
 
 
 def _no_cuda(monkeypatch):
