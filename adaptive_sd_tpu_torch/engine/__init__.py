@@ -1,12 +1,13 @@
-"""Tier engine, paged KV cache, page allocator and prefix cache of the
-PyTorch port."""
+"""Tier engine, paged KV cache, page allocator, prefix cache and
+continuous-batching scheduler of the PyTorch port."""
 
 from .allocator import AllocatorStats, PageAllocator
 from .decode import GenerationOutput, TierEngine
 from .kv_cache import PagedKVCache
 from .prefix_cache import PrefixCache
+from .scheduler import ContinuousBatchingScheduler, SchedRequest
 
 __all__ = [
-    "AllocatorStats", "GenerationOutput", "PageAllocator", "PagedKVCache", "PrefixCache",
-    "TierEngine",
+    "AllocatorStats", "ContinuousBatchingScheduler", "GenerationOutput", "PageAllocator",
+    "PagedKVCache", "PrefixCache", "SchedRequest", "TierEngine",
 ]

@@ -9,6 +9,15 @@ and ``gen_len``. Loop bookkeeping (write slots, budgets) lives on the host;
 tokens stay on the device and come back in one copy per call (one per step
 only when an ``eos_id`` must be checked). The shape bucketing of the JAX
 engine is kept, so both packages see the same padded shapes.
+
+For the continuous-batching scheduler (engine/scheduler.py) the engine also
+has one-dispatch calls: a forward, the per-row sampling and one fetch
+(``prefill_sample_batch``, ``prefill_window_sample_batch``,
+``decode_sample_batch``, ``verify_admit_sample_batch``), a multi-step decode
+scan whose masks live on the device so that nothing syncs with the host
+between its steps (``decode_sample_scan`` and the device-carry variants), and
+the KV page swap. Where the JAX engine takes a ``jax.random`` key these take
+an integer seed and make a ``torch.Generator`` on the engine's device.
 """
 
 from __future__ import annotations
@@ -29,7 +38,9 @@ from ..ops.sampling import (
     SampleResult,
     _categorical,
     adjusted_logits,
+    row_adjusted_logits,
     sample,
+    sample_rows_with_topk,
     sample_with_topk,
     speculative_accept,
 )
@@ -104,7 +115,14 @@ class TierEngine:
         cost_per_token: float = 1.0,
         enable_prefix_cache: bool = False,
         device=None,
+        act_quant: bool = False,
+        prefix_spill_bytes: int = 0,
     ) -> None:
+        """``act_quant``: INT8 weights take the W8A8 path (dynamic INT8
+        activations, ``ops.matmul_q.quantized_matmul_w8a8``) in every forward
+        of this engine. ``prefix_spill_bytes`` > 0: evicted prefix-cache
+        pages spill to host memory and restore bit-exactly on a chain-intact
+        re-acquire instead of recomputing the prefill."""
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(
@@ -116,11 +134,18 @@ class TierEngine:
         self.eos_id = eos_id
         self.cost_per_token = cost_per_token
         self.params = params
+        self.act_quant = bool(act_quant)
+        # extra keywords of every forward call (empty without act_quant)
+        self._fwd_kw = {"act_quant": True} if self.act_quant else {}
         self.allocator = PageAllocator(n_pages)
         self.cache = PagedKVCache.create(spec, n_pages, page_size, device=self.device)
         # automatic prefix caching: content-addressed KV-page reuse; prompts
         # then prefill only their uncached suffix window (prefill_window)
-        self.prefix_cache = PrefixCache(self.allocator, page_size) if enable_prefix_cache else None
+        self.prefix_cache = (
+            PrefixCache(self.allocator, page_size, spill_bytes=prefix_spill_bytes,
+                        swap_out=self.swap_out_pages, swap_in=self.swap_in_pages)
+            if enable_prefix_cache else None
+        )
         self.total_generated_tokens = 0
         self.total_decode_time_s = 0.0
 
@@ -195,7 +220,7 @@ class TierEngine:
             if not (active.any() and i + 1 < max_new):
                 break  # the JAX loop decodes once more here; nothing reads it
             logits, _ = decode_step(self.params, self.spec, tok.token, seq_lens + i,
-                                    self.cache, block_tables)
+                                    self.cache, block_tables, **self._fwd_kw)
             if return_topk:
                 tok, qi, qp = sample_with_topk(logits, gen, return_topk, temperature, top_p)
                 q_cur = (qi, qp)
@@ -295,7 +320,7 @@ class TierEngine:
             gen = self._generator(seed)
             seq_lens_t, tables_t = self._t(seq_lens), self._t(tables)
             logits, _ = prefill(self.params, self.spec, self._t(tokens), seq_lens_t,
-                                self.cache, tables_t)
+                                self.cache, tables_t, **self._fwd_kw)
             first, q_cur = self._first_token(logits, gen, temperature, top_p, return_topk)
             out = self._decode_loop(
                 first, q_cur, seq_lens_t, tables_t, gen, budget=max_new, max_new=max_new_b,
@@ -345,9 +370,9 @@ class TierEngine:
             gen = self._generator(seed)
             offsets_t, win_lens_t, tables_t = self._t(offsets), self._t(win_lens), self._t(tables)
             h, _ = prefill_window(self.params, self.spec, self._t(tokens), offsets_t,
-                                  win_lens_t, self.cache, tables_t)
+                                  win_lens_t, self.cache, tables_t, **self._fwd_kw)
             last = h[torch.arange(Bb, device=h.device), (win_lens_t.long() - 1).clamp(min=0)]
-            logits = logits_at(self.params, self.spec, last)
+            logits = logits_at(self.params, self.spec, last, **self._fwd_kw)
             first, q_cur = self._first_token(logits, gen, temperature, top_p, return_topk)
             out = self._decode_loop(
                 first, q_cur, offsets_t + win_lens_t, tables_t, gen, budget=max_new,
@@ -369,14 +394,15 @@ class TierEngine:
     def prefill_batch(self, tokens: torch.Tensor, seq_lens: torch.Tensor,
                       block_tables: torch.Tensor) -> torch.Tensor:
         """One prefill over caller-managed pages; returns last-token logits."""
-        logits, _ = prefill(self.params, self.spec, tokens, seq_lens, self.cache, block_tables)
+        logits, _ = prefill(self.params, self.spec, tokens, seq_lens, self.cache, block_tables,
+                            **self._fwd_kw)
         return logits
 
     def decode_batch(self, tokens: torch.Tensor, positions: torch.Tensor,
                      block_tables: torch.Tensor) -> torch.Tensor:
         """One decode step over caller-managed pages; returns logits [B, V]."""
         logits, _ = decode_step(self.params, self.spec, tokens, positions, self.cache,
-                                block_tables)
+                                block_tables, **self._fwd_kw)
         return logits
 
     def stream(
@@ -419,6 +445,310 @@ class TierEngine:
                 pos += 1
         finally:
             self.allocator.free_request(rid)
+
+
+    # one-dispatch calls for the continuous-batching scheduler -----------------------
+    @staticmethod
+    def _host(*tensors):
+        """Copy result tensors to the host (the call's one sync point);
+        ``None`` stays ``None``, floats come back as f32."""
+        out = []
+        for t in tensors:
+            if t is None:
+                out.append(None)
+            else:
+                t = t.detach()
+                out.append((t.float() if t.is_floating_point() else t).cpu().numpy())
+        return out
+
+    def _rows(self, temps, top_ps):
+        temps_t = self._t(np.asarray(temps, np.float32))
+        if top_ps is None:
+            top_ps = np.ones(len(temps), np.float32)
+        return temps_t, self._t(np.asarray(top_ps, np.float32))
+
+    def _sample_fetch(self, logits, seed, temps, top_ps, return_topk):
+        """Per-row sampling of last-token logits and the fetch: host (tokens
+        [B], logprobs [B], q_out), q_out () or (topk_ids [B, K], topk_probs)."""
+        temps_t, tps_t = self._rows(temps, top_ps)
+        res, qi, qp = sample_rows_with_topk(logits, self._generator(seed), temps_t,
+                                            return_topk, tps_t)
+        tok, lp, qi, qp = self._host(res.token, res.logprob, qi, qp)
+        return tok, lp, ((qi, qp) if return_topk else ())
+
+    def prefill_sample_batch(self, tokens, seq_lens, block_tables, temps, seed: int,
+                             *, return_topk: int = 0, top_ps=None):
+        """Prefill + per-row sample in one dispatch (scheduler admission):
+        host arrays in, host (tokens [B], logprobs [B], q_out) out.
+        ``top_ps`` [B]: per-row nucleus parameter (None = 1.0)."""
+        logits, _ = prefill(self.params, self.spec, self._t(np.asarray(tokens)),
+                            self._t(np.asarray(seq_lens, np.int32)), self.cache,
+                            self._t(np.asarray(block_tables, np.int32)), **self._fwd_kw)
+        return self._sample_fetch(logits, seed, temps, top_ps, return_topk)
+
+    def decode_sample_batch(self, tokens, positions, block_tables, temps, seed: int,
+                            *, return_topk: int = 0, top_ps=None):
+        """One decode step + per-row sample (scheduler single-step loop): one
+        dispatch, one [B]-sized fetch."""
+        logits, _ = decode_step(self.params, self.spec,
+                                self._t(np.asarray(tokens, np.int32)),
+                                self._t(np.asarray(positions, np.int32)), self.cache,
+                                self._t(np.asarray(block_tables, np.int32)), **self._fwd_kw)
+        return self._sample_fetch(logits, seed, temps, top_ps, return_topk)
+
+    def prefill_window_sample_batch(self, tokens_w, offsets, win_lens, block_tables, temps,
+                                    seed: int, *, return_topk: int = 0, top_ps=None):
+        """Prefix-cache admission: prefill only each row's uncached suffix
+        window (cached prompt pages are attended through the stitched block
+        table) + per-row sample, one dispatch."""
+        win_lens_t = self._t(np.asarray(win_lens, np.int32))
+        h, _ = prefill_window(self.params, self.spec, self._t(np.asarray(tokens_w)),
+                              self._t(np.asarray(offsets, np.int32)), win_lens_t, self.cache,
+                              self._t(np.asarray(block_tables, np.int32)), **self._fwd_kw)
+        last = h[torch.arange(h.shape[0], device=h.device), (win_lens_t.long() - 1).clamp(min=0)]
+        logits = logits_at(self.params, self.spec, last, **self._fwd_kw)
+        return self._sample_fetch(logits, seed, temps, top_ps, return_topk)
+
+    def verify_admit_sample_batch(
+        self, tokens, prompt_lens, total_lens, block_tables, temps, seed: int, *,
+        max_draft: int, draft_q=(), return_topk: int = 0, offsets=None, top_ps=None,
+    ):
+        """Scheduler escalation admission (JAX ``_make_verify_admit_fn``):
+        verify [prompt + draft] rows in one parallel pass and emit each row's
+        next token at its lane temperature; no decode loop, the lane's
+        regular steps decode the remainder. ``draft_q`` = () for greedy
+        argmax acceptance, or (draft_lp [B, Dw], q_ids [B, Dw, K], q_probs
+        [B, Dw, K]) for the exact stochastic rule on rows with temperature
+        > 0. ``offsets`` (prefix-cache mode): reused prompt-prefix lengths;
+        ``tokens`` then holds only the window [prompt-suffix + draft].
+        Returns host (n_accepted [B], next_token [B], next_logprob [B],
+        draft_logprobs [B, max_draft], q_out) where q_out is () or (topk_ids
+        [B, Dw+1, K'], topk_probs) when ``return_topk`` = K' > 0. Rejected
+        draft positions leave stale KV beyond the resume position; decode
+        overwrites each such slot before attention can read it."""
+        cached = offsets is not None
+        gen = self._generator(seed)
+        tokens_t = self._t(np.asarray(tokens))
+        tables = self._t(np.asarray(block_tables, np.int32))
+        p_lens = self._t(np.asarray(prompt_lens, np.int32))
+        t_lens = self._t(np.asarray(total_lens, np.int32))
+        temps_t, tps_t = self._rows(temps, top_ps)
+        B, S = tokens_t.shape
+        if cached:
+            offs = self._t(np.asarray(offsets, np.int32))
+            h, _ = prefill_window(self.params, self.spec, tokens_t, offs, t_lens - offs,
+                                  self.cache, tables, **self._fwd_kw)
+            base = (p_lens - offs).long()
+        else:
+            _, _, h = prefill(self.params, self.spec, tokens_t, t_lens, self.cache, tables,
+                              return_hidden=True, **self._fwd_kw)
+            base = p_lens.long()
+        # hidden state at position prompt_len-1+i predicts draft token i; the
+        # +1 window slot is the bonus token on full acceptance
+        ar = torch.arange(max_draft + 1, device=self.device)
+        pos = (base[:, None] - 1 + ar[None, :]).clamp(0, S - 1)
+        h_sel = torch.gather(h, 1, pos[:, :, None].expand(-1, -1, h.shape[-1]))
+        logits_d = logits_at(self.params, self.spec, h_sel, **self._fwd_kw)  # [B, Dw+1, V]
+        draft_idx = (base[:, None] + ar[None, :max_draft]).clamp(0, S - 1)
+        draft = torch.gather(tokens_t, 1, draft_idx).to(torch.int32)         # [B, Dw]
+        draft_len = t_lens - p_lens
+
+        # every row is scored under its own temperature/top_p, greedy-accepted
+        # rows too: accepted-token logprobs and the carried support must be on
+        # the lane's own scale
+        stoch = temps_t > 0.0
+        logp_d = torch.log_softmax(row_adjusted_logits(logits_d, temps_t, tps_t), dim=-1)
+        pred = torch.argmax(logits_d, dim=-1).to(torch.int32)
+        valid = ar[None, :max_draft] < draft_len.long()[:, None]
+        match = (pred[:, :max_draft] == draft) & valid
+        n_acc = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1).to(torch.int32)
+        draft_lp = torch.gather(logp_d[:, :max_draft], 2, draft.long()[:, :, None])[:, :, 0]
+
+        tok_s = lp_s = None
+        if draft_q:
+            dlp_q, q_ids, q_probs = (self._t(np.asarray(a)) for a in draft_q)
+            n_acc_s, tok_s, lp_s = speculative_accept(
+                gen, draft, dlp_q.float(), q_ids, q_probs, logp_d, draft_len
+            )
+            n_acc = torch.where(stoch, n_acc_s, n_acc)
+
+        V = logits_d.shape[-1]
+        next_logits = torch.gather(logits_d, 1, n_acc.long()[:, None, None].expand(-1, 1, V))[:, 0]
+        res, _, _ = sample_rows_with_topk(next_logits, gen, temps_t, 0, tps_t)
+        tok, lp = res.token, res.logprob
+        if draft_q:
+            # stochastic rows emit the residual/bonus sample of the exact rule
+            tok = torch.where(stoch, tok_s, tok)
+            lp = torch.where(stoch, lp_s, lp)
+
+        qi = qp = None
+        if return_topk:
+            w_lp, w_ids = torch.topk(logp_d, return_topk, dim=-1)            # [B, Dw+1, K]
+            qi, qp = w_ids.to(torch.int32), torch.exp(w_lp)
+        n_acc_h, tok_h, lp_h, dlp_h, qi, qp = self._host(n_acc, tok, lp, draft_lp, qi, qp)
+        return n_acc_h, tok_h, lp_h, dlp_h, ((qi, qp) if return_topk else ())
+
+    def _scan(self, tok, pos, rem, tables, temps, top_ps, gen, n_steps: int, return_topk: int):
+        """``n_steps`` decode + sample iterations, all state on the device:
+        lanes with ``rem`` > 0 emit; a lane that runs out of budget (or
+        samples eos) mid-scan keeps re-feeding its last token at a frozen
+        position, which rewrites identical K/V, and its emissions are masked.
+        No step reads a value back to the host, so the whole scan is one
+        stream of launches. Returns device (out_t [B, n], out_l, emitted [B],
+        qi, qp) and the final (tok, pos, rem)."""
+        B = tok.shape[0]
+        dev = self.device
+        out_t = torch.full((B, n_steps), PAD_ID, dtype=torch.int32, device=dev)
+        out_l = torch.zeros((B, n_steps), dtype=torch.float32, device=dev)
+        emitted = torch.zeros((B,), dtype=torch.int32, device=dev)
+        qi = qp = None
+        if return_topk:
+            qi = torch.zeros((B, n_steps, return_topk), dtype=torch.int32, device=dev)
+            qp = torch.zeros((B, n_steps, return_topk), dtype=torch.float32, device=dev)
+        for i in range(n_steps):
+            active = rem > 0
+            logits, _ = decode_step(self.params, self.spec, tok, pos, self.cache, tables,
+                                    **self._fwd_kw)
+            res, ri, rp = sample_rows_with_topk(logits, gen, temps, return_topk, top_ps)
+            if return_topk:
+                qi[:, i] = torch.where(active[:, None], ri, torch.zeros_like(ri))
+                qp[:, i] = torch.where(active[:, None], rp, torch.zeros_like(rp))
+            out_t[:, i] = torch.where(active, res.token, torch.full_like(res.token, PAD_ID))
+            out_l[:, i] = torch.where(active, res.logprob, torch.zeros_like(res.logprob))
+            step = active.to(torch.int32)
+            emitted = emitted + step
+            rem = rem - step
+            if self.eos_id is not None:
+                rem = torch.where(active & (res.token == self.eos_id), torch.zeros_like(rem), rem)
+            tok = torch.where(active, res.token, tok)
+            pos = pos + step
+        return (out_t, out_l, emitted, qi, qp), (tok, pos, rem)
+
+    def decode_sample_scan(
+        self, tokens, positions, block_tables, temps, seed: int, remaining, *,
+        n_steps: int, return_topk: int = 0, top_ps=None,
+    ):
+        """Exactly ``n_steps`` decode+sample iterations in one dispatch
+        (scheduler batch hot loop). ``remaining`` [B]: per-lane emission
+        budgets; lanes stop emitting at budget/eos but cost nothing extra.
+        Callers pre-grow each active lane's pages to cover position +
+        n_steps. Returns host (out_tokens [B, n_steps], out_logprobs
+        [B, n_steps], emitted [B], q_out)."""
+        temps_t, tps_t = self._rows(temps, top_ps)
+        handles, _ = self._scan(
+            self._t(np.asarray(tokens, np.int32)), self._t(np.asarray(positions, np.int32)),
+            self._t(np.asarray(remaining, np.int32)),
+            self._t(np.asarray(block_tables, np.int32)), temps_t, tps_t,
+            self._generator(seed), n_steps, return_topk,
+        )
+        return self.fetch_scan_handles(handles)
+
+    # device-carry scanning: lane state stays on the device between scans ---------
+    def scan_carry_init(self, tokens, positions, remaining, temps, top_ps, seed: int) -> dict:
+        """Stage lane state on the device for chained scans: a dict of device
+        tensors plus the generator whose state the scans advance."""
+        return {
+            "tok": self._t(np.asarray(tokens, np.int32)),
+            "pos": self._t(np.asarray(positions, np.int32)),
+            "rem": self._t(np.asarray(remaining, np.int32)),
+            "gen": self._generator(seed),
+            "temps": self._t(np.asarray(temps, np.float32)),
+            "top_ps": self._t(np.asarray(top_ps, np.float32)),
+        }
+
+    def scan_carry_update(self, carry: dict, lanes, tokens, positions, remaining,
+                          temps=None, top_ps=None) -> dict:
+        """Patch fresh per-lane state (admissions) into a device carry
+        without touching the other lanes. The patched tensors are new ones: a
+        scan already enqueued on the old carry is unaffected."""
+        idx = self._t(np.asarray(lanes, np.int64))
+        upd = dict(carry)
+        fields = [("tok", tokens, np.int32), ("pos", positions, np.int32),
+                  ("rem", remaining, np.int32)]
+        if temps is not None:
+            fields.append(("temps", temps, np.float32))
+        if top_ps is not None:
+            fields.append(("top_ps", top_ps, np.float32))
+        for name, values, dt in fields:
+            upd[name] = carry[name].index_copy(0, idx, self._t(np.asarray(values, dt)))
+        return upd
+
+    def scan_carry_mask(self, carry: dict, lanes) -> dict:
+        """Zero the budgets of ``lanes`` (retired/preempted): the scan masks
+        rem == 0 lanes, so they can stay in the dispatch harmlessly."""
+        idx = self._t(np.asarray(lanes, np.int64))
+        upd = dict(carry)
+        upd["rem"] = carry["rem"].index_fill(0, idx, 0)
+        return upd
+
+    def decode_sample_scan_carry_async(self, carry: dict, block_tables_dev, *, n_steps: int,
+                                       return_topk: int = 0):
+        """Enqueue one chained scan WITHOUT fetching: returns (device result
+        handles, new_carry). Nothing on this path copies from or to the
+        host, so the caller can enqueue the next scan from ``new_carry``
+        before it fetches this one's handles."""
+        handles, (tok, pos, rem) = self._scan(
+            carry["tok"], carry["pos"], carry["rem"], block_tables_dev, carry["temps"],
+            carry["top_ps"], carry["gen"], n_steps, return_topk,
+        )
+        new_carry = dict(carry)
+        new_carry["tok"], new_carry["pos"], new_carry["rem"] = tok, pos, rem
+        return handles, new_carry
+
+    def decode_sample_scan_carry(self, carry: dict, block_tables_dev, *, n_steps: int,
+                                 return_topk: int = 0):
+        """One chained scan from a device-resident carry. Returns (host
+        (out_tokens, out_logprobs, emitted, q_out), new_carry)."""
+        handles, new_carry = self.decode_sample_scan_carry_async(
+            carry, block_tables_dev, n_steps=n_steps, return_topk=return_topk
+        )
+        return self.fetch_scan_handles(handles), new_carry
+
+    @classmethod
+    def fetch_scan_handles(cls, handles):
+        """Copy a scan's device handles to the host: (out_tokens,
+        out_logprobs, emitted, q_out)."""
+        out_t, out_l, emitted, qi, qp = cls._host(*handles)
+        return out_t, out_l, emitted, ((qi, qp) if qi is not None else ())
+
+    def tables_to_device(self, tables: np.ndarray) -> torch.Tensor:
+        """A host block table as an int32 tensor on the engine's device."""
+        return self._t(np.asarray(tables, np.int32))
+
+    # KV page swap (scheduler swap-mode preemption, prefix-cache spill) -----------
+    def _pools(self):
+        c = self.cache
+        return c.k_pages, c.k_scales, c.v_pages, c.v_scales
+
+    def swap_out_pages(self, pages: list) -> tuple:
+        """Copy the full contents (K/V int8 + scales, every layer) of
+        ``pages`` to host memory. Returns a blob for :meth:`swap_in_pages`,
+        four numpy arrays ([L, n_kv, P, page, D] int8 and [L, n_kv, P, 1,
+        page] f32, for K and V) sliced to the real page count: callers charge
+        ``nbytes`` of it to their host budgets. An empty list reads page 0."""
+        idx = self._t(np.asarray(list(pages) or [0], np.int64))
+        return tuple(
+            torch.stack([x.index_select(1, idx) for x in pool]).cpu().numpy()
+            for pool in self._pools()
+        )
+
+    def swap_in_pages(self, pages: list, blob: tuple) -> None:
+        """Restore a :meth:`swap_out_pages` blob into (freshly granted)
+        device pages, bit for bit: the resumed lane's attention reads
+        identical quantized KV. Blob rows beyond ``pages``, and pages out of
+        range (padding), are dropped here, on the host: ``index_copy_`` has
+        no drop mode."""
+        n_pages = self.cache.n_pages
+        keep = [(i, int(p)) for i, p in enumerate(list(pages)[: int(blob[0].shape[2])])
+                if 0 <= int(p) < n_pages]
+        if not keep:
+            return
+        rows = [i for i, _ in keep]
+        idx = self._t(np.asarray([p for _, p in keep], np.int64))
+        for pool, arr in zip(self._pools(), blob):
+            src = self._t(np.ascontiguousarray(np.asarray(arr)[:, :, rows]))
+            for layer, x in enumerate(pool):
+                x.index_copy_(1, idx, src[layer])
 
     # on-device stopping ---------------------------------------------------------------
     def generate_with_policy(
@@ -560,10 +890,10 @@ class TierEngine:
         B, S = tokens_np.shape
         if cached:
             h, _ = prefill_window(self.params, self.spec, tokens, offsets,
-                                  total_lens - offsets, self.cache, tables)
+                                  total_lens - offsets, self.cache, tables, **self._fwd_kw)
         else:
             _, _, h = prefill(self.params, self.spec, tokens, total_lens, self.cache, tables,
-                              return_hidden=True)
+                              return_hidden=True, **self._fwd_kw)
         # hidden state at position prompt_len-1+i predicts draft token i; the
         # extra slot (i == draft_len) is the bonus token on full acceptance.
         # In cached mode h/tokens are window-relative: shift by offsets.
@@ -571,7 +901,7 @@ class TierEngine:
         ar = torch.arange(max_draft + 1, device=self.device)
         pos_c = (base[:, None] - 1 + ar[None, :]).clamp(0, S - 1)
         h_sel = torch.gather(h, 1, pos_c[:, :, None].expand(-1, -1, h.shape[-1]))
-        logits_d = logits_at(self.params, self.spec, h_sel)              # [B, Dw+1, V]
+        logits_d = logits_at(self.params, self.spec, h_sel, **self._fwd_kw)  # [B, Dw+1, V]
         draft_idx = (base[:, None] + ar[None, :max_draft]).clamp(0, S - 1)
         draft = torch.gather(tokens, 1, draft_idx)                       # [B, Dw]
         draft_len = total_lens - prompt_lens
@@ -650,7 +980,7 @@ class TierEngine:
                 break  # the JAX loop decodes once more here; nothing reads it
             logits, _ = decode_step(self.params, self.spec, tok.token,
                                     prompt_lens + self._t(wr.astype(np.int32)),
-                                    self.cache, tables)
+                                    self.cache, tables, **self._fwd_kw)
             if return_topk:
                 tok, nqi, nqp = sample_with_topk(logits, gen, return_topk, temperature, top_p)
                 # the next iteration writes tok at slot wr+1: stage its q row

@@ -1,6 +1,6 @@
 """Automatic prefix caching: content-addressed sharing of prompt KV pages
-(a copy of ``adaptive_sd_tpu/engine/prefix_cache.py`` without the host
-spill, which needs the engine's page swap, not ported yet). Design:
+(a copy of ``adaptive_sd_tpu/engine/prefix_cache.py``, host spill included).
+Design:
 
 * Page-aligned chunking with CHAIN hashes: chunk i's key hashes chunk i's
   tokens together with chunk i-1's key, so a hit at chunk i implies the whole
@@ -14,6 +14,12 @@ spill, which needs the engine's page swap, not ported yet). Design:
 * LRU eviction of refcount-0 entries under a page budget (and on allocator
   pressure); eviction frees the underlying page. Suffix entries keep their
   prefix chain alive via per-entry parent refs.
+* Optional HOST SPILL: with a ``spill_bytes`` budget and the engine's page
+  swap hooks (TierEngine.swap_out_pages/swap_in_pages), an evicted page's
+  contents are copied to host memory instead of being lost; a later acquire
+  of the same chunk (with an intact chain) restores it bit-exactly into a
+  fresh device page, so a device-page miss becomes a host hit and skips the
+  prefill recompute. Spilled blobs are LRU-bounded by bytes.
 """
 
 from __future__ import annotations
@@ -47,9 +53,23 @@ class _Entry:
 class PrefixCache:
     """Content-addressed KV-page cache over a PageAllocator."""
 
-    def __init__(self, allocator, page_size: int, *, max_pages: int = 0) -> None:
+    def __init__(
+        self,
+        allocator,
+        page_size: int,
+        *,
+        max_pages: int = 0,
+        spill_bytes: int = 0,
+        swap_out=None,
+        swap_in=None,
+    ) -> None:
         """``max_pages``: page budget for cached-but-unreferenced entries
-        (0 = quarter of the allocator's pool)."""
+        (0 = quarter of the allocator's pool).
+
+        ``spill_bytes`` > 0 with both swap hooks enables host spill:
+        evicted pages are copied to host (``swap_out(pages) -> blob``) and
+        restored (``swap_in(pages, blob)``) on a chain-intact re-acquire,
+        holding at most ``spill_bytes`` of host memory (LRU)."""
         self.allocator = allocator
         self.page_size = page_size
         self.max_pages = max_pages or max(allocator.n_pages // 4, 1)
@@ -58,6 +78,15 @@ class PrefixCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        self.spill_bytes = spill_bytes if (swap_out and swap_in) else 0
+        self._swap_out = swap_out
+        self._swap_in = swap_in
+        # key -> (blob, nbytes); dict order is the LRU order (insert-only:
+        # a restore removes the entry, so no move-to-front is needed)
+        self._spilled: dict[bytes, tuple] = {}
+        self._spilled_bytes = 0
+        self.spills = 0
+        self.spill_hits = 0
 
     # ------------------------------------------------------------- internals
     def _keys_for(self, tokens: Sequence[int], n_chunks: int) -> list[bytes]:
@@ -81,6 +110,22 @@ class PrefixCache:
         if not victims:
             return False
         v = min(victims, key=lambda e: e.last_used)
+        if self.spill_bytes > 0:
+            # host spill: keep the page's contents so a later chain-intact
+            # acquire restores instead of recomputing the prefill
+            blob = self._swap_out([v.page])
+            nbytes = sum(int(b.nbytes) for b in blob)
+            if nbytes <= self.spill_bytes:
+                old = self._spilled.pop(v.key, None)
+                if old is not None:
+                    self._spilled_bytes -= old[1]
+                self._spilled[v.key] = (blob, nbytes)
+                self._spilled_bytes += nbytes
+                self.spills += 1
+                while self._spilled_bytes > self.spill_bytes:
+                    k = next(iter(self._spilled))  # oldest spill
+                    _, nb = self._spilled.pop(k)
+                    self._spilled_bytes -= nb
         del self._entries[v.key]
         self.allocator.free_request(f"prefix:{v.key.hex()}")
         self.evictions += 1
@@ -134,6 +179,38 @@ class PrefixCache:
                         n_reused += self.page_size
                         self.hits += 1
                         continue
+                    if e is None and not broken and key in self._spilled:
+                        # host-spill hit: restore the evicted page's contents
+                        # bit-exactly into a fresh device page — the chunk
+                        # counts as reused, no prefill recompute
+                        blob, nbytes = self._spilled.pop(key)
+                        self._spilled_bytes -= nbytes
+                        try:
+                            page = self._alloc_page(key)
+                        except ResourceError:
+                            self._spilled[key] = (blob, nbytes)  # keep it
+                            self._spilled_bytes += nbytes
+                            raise
+                        try:
+                            self._swap_in([page], blob)
+                        except Exception:
+                            # a device-op failure here would otherwise leave
+                            # the page allocated with no _entries record — a
+                            # permanent leak. Free it and re-shelve the blob.
+                            self.allocator.free_request(f"prefix:{key.hex()}")
+                            self._spilled[key] = (blob, nbytes)
+                            self._spilled_bytes += nbytes
+                            raise
+                        self._entries[key] = _Entry(
+                            key=key, page=page,
+                            parent=keys[ci - 1] if ci else None, refs=1,
+                        )
+                        pages.append(page)
+                        held.append(key)
+                        n_reused += self.page_size
+                        self.hits += 1
+                        self.spill_hits += 1
+                        continue
                     broken = True  # chain broke: everything after is a miss
                     self.misses += 1
                     if e is not None:
@@ -156,8 +233,9 @@ class PrefixCache:
                     held.append(key)
                     to_fill.append((key, page))
             except Exception:
-                # unwind a partial acquisition (alloc pressure mid-chain):
-                # drop this call's refs and fresh entries, then re-raise — callers
+                # unwind a partial acquisition (alloc pressure mid-chain, or
+                # any device-op failure during a spill restore): drop this
+                # call's refs and fresh entries, then re-raise — callers
                 # never learn about the partial holds (lock is held, so
                 # unwind inline rather than via release/invalidate)
                 fill_keys = {k for k, _ in to_fill}
@@ -197,6 +275,9 @@ class PrefixCache:
                 e = self._entries.pop(key, None)
                 if e is not None:
                     self.allocator.free_request(f"prefix:{key.hex()}")
+                sp = self._spilled.pop(key, None)
+                if sp is not None:
+                    self._spilled_bytes -= sp[1]
 
     def stats(self) -> dict:
         with self._lock:
@@ -208,4 +289,8 @@ class PrefixCache:
                 "misses": self.misses,
                 "hit_rate": self.hits / total if total else 0.0,
                 "evictions": self.evictions,
+                "spills": self.spills,
+                "spill_hits": self.spill_hits,
+                "spilled_entries": len(self._spilled),
+                "spilled_bytes": self._spilled_bytes,
             }

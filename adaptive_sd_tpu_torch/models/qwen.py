@@ -38,10 +38,11 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
-def linear(x: torch.Tensor, w, bias=None) -> torch.Tensor:
-    """QuantizedTensor -> quantized matmul; raw weight -> f32-accumulated dot."""
+def linear(x: torch.Tensor, w, bias=None, *, act_quant: bool = False) -> torch.Tensor:
+    """QuantizedTensor -> quantized matmul (the W8A8 path when ``act_quant``
+    and the weight is INT8); raw weight -> f32-accumulated dot."""
     if isinstance(w, QuantizedTensor):
-        y = linear_q(x, w)
+        y = linear_q(x, w, act_quant=act_quant)
     else:
         y = torch.matmul(x.float(), w.float()).to(x.dtype)
     if bias is not None:
@@ -189,35 +190,42 @@ def quantize_model(
 # forward passes
 
 
-def _qkv(spec: ModelSpec, layer, x):
+def _qkv(spec: ModelSpec, layer, x, *, act_quant: bool = False):
     """Q/K/V projections, fused (qkv_proj) or separate."""
     D = spec.head_dim
     nq, nkv = spec.n_heads * D, spec.n_kv_heads * D
     if "qkv_proj" in layer:
-        qkv = linear(x, layer["qkv_proj"], layer.get("qkv_bias"))
+        qkv = linear(x, layer["qkv_proj"], layer.get("qkv_bias"), act_quant=act_quant)
         return qkv[..., :nq], qkv[..., nq : nq + nkv], qkv[..., nq + nkv :]
     return (
-        linear(x, layer["q_proj"], layer.get("q_bias")),
-        linear(x, layer["k_proj"], layer.get("k_bias")),
-        linear(x, layer["v_proj"], layer.get("v_bias")),
+        linear(x, layer["q_proj"], layer.get("q_bias"), act_quant=act_quant),
+        linear(x, layer["k_proj"], layer.get("k_bias"), act_quant=act_quant),
+        linear(x, layer["v_proj"], layer.get("v_bias"), act_quant=act_quant),
     )
 
 
-def _mlp(spec: ModelSpec, layer, x):
+def _attn_out(layer, attn: torch.Tensor, *, act_quant: bool = False) -> torch.Tensor:
+    """Output projection of the attention sublayer."""
+    return linear(attn, layer["o_proj"], act_quant=act_quant)
+
+
+def _mlp(spec: ModelSpec, layer, x, *, act_quant: bool = False):
     """SwiGLU MLP, fused (gateup_proj) or separate."""
     if "gateup_proj" in layer:
-        gu = linear(x, layer["gateup_proj"])
+        gu = linear(x, layer["gateup_proj"], act_quant=act_quant)
         gate, up = gu[..., : spec.ffn], gu[..., spec.ffn :]
     else:
-        gate, up = linear(x, layer["gate_proj"]), linear(x, layer["up_proj"])
-    return linear(F.silu(gate) * up, layer["down_proj"])
+        gate = linear(x, layer["gate_proj"], act_quant=act_quant)
+        up = linear(x, layer["up_proj"], act_quant=act_quant)
+    return linear(F.silu(gate) * up, layer["down_proj"], act_quant=act_quant)
 
 
-def _logits(params: Params, spec: ModelSpec, h: torch.Tensor) -> torch.Tensor:
+def _logits(params: Params, spec: ModelSpec, h: torch.Tensor, *,
+            act_quant: bool = False) -> torch.Tensor:
     h = rms_norm(h, params["final_norm"], spec.rms_eps)
     if spec.tie_embeddings:
         return torch.matmul(h.float(), params["embed"].float().T)
-    return linear(h, params["lm_head"]).float()
+    return linear(h, params["lm_head"], act_quant=act_quant).float()
 
 
 def _heads(spec: ModelSpec, x: torch.Tensor, n: int) -> torch.Tensor:
@@ -234,6 +242,7 @@ def prefill(
     block_tables: torch.Tensor,  # [B, max_pages] int32
     *,
     return_hidden: bool = False,
+    act_quant: bool = False,
 ):
     """Process full prompts; returns (last-token logits [B, V] f32, cache)
     or, with ``return_hidden``, (logits, cache, hidden [B, S, H] before the
@@ -247,25 +256,28 @@ def prefill(
 
     for li, layer in enumerate(params["layers"]):
         x = rms_norm(h, layer["input_norm"], spec.rms_eps)
-        q, k, v = _qkv(spec, layer, x)
+        q, k, v = _qkv(spec, layer, x, act_quant=act_quant)
         q = apply_rope(_heads(spec, q, spec.n_heads), cos, sin)
         k = apply_rope(_heads(spec, k, spec.n_kv_heads), cos, sin)
         v = _heads(spec, v, spec.n_kv_heads)
         attn = prefill_attention(q, k, v, sm_scale=sm_scale, seq_lens=seq_lens)
-        h = h + linear(attn.reshape(B, S, spec.n_heads * spec.head_dim), layer["o_proj"])
+        h = h + _attn_out(layer, attn.reshape(B, S, spec.n_heads * spec.head_dim),
+                          act_quant=act_quant)
         cache.write_prefill(li, k, v, block_tables, seq_lens)
-        h = h + _mlp(spec, layer, rms_norm(h, layer["post_norm"], spec.rms_eps))
+        h = h + _mlp(spec, layer, rms_norm(h, layer["post_norm"], spec.rms_eps),
+                     act_quant=act_quant)
 
     last = h[torch.arange(B, device=h.device), seq_lens.long() - 1]
-    logits = _logits(params, spec, last)
+    logits = _logits(params, spec, last, act_quant=act_quant)
     if return_hidden:
         return logits, cache, h
     return logits, cache
 
 
-def logits_at(params: Params, spec: ModelSpec, h: torch.Tensor) -> torch.Tensor:
+def logits_at(params: Params, spec: ModelSpec, h: torch.Tensor, *,
+              act_quant: bool = False) -> torch.Tensor:
     """Per-position logits from hidden states (speculative verify)."""
-    return _logits(params, spec, h)
+    return _logits(params, spec, h, act_quant=act_quant)
 
 
 def prefill_window(
@@ -276,6 +288,8 @@ def prefill_window(
     win_lens: torch.Tensor,      # [B] int32 valid window lengths
     cache,                       # PagedKVCache (prefix already written)
     block_tables: torch.Tensor,  # [B, max_pages] int32
+    *,
+    act_quant: bool = False,
 ):
     """Chunked prefill of a WINDOW whose prefix KV is already in the cache
     pages: each window position attends the cached prefix plus the window's
@@ -293,7 +307,7 @@ def prefill_window(
 
     for li, layer in enumerate(params["layers"]):
         x = rms_norm(h, layer["input_norm"], spec.rms_eps)
-        q, k, v = _qkv(spec, layer, x)
+        q, k, v = _qkv(spec, layer, x, act_quant=act_quant)
         q = apply_rope(_heads(spec, q, spec.n_heads), cos, sin)
         k = apply_rope(_heads(spec, k, n_kv), cos, sin)
         v = _heads(spec, v, n_kv)
@@ -306,8 +320,9 @@ def prefill_window(
             block_tables, ctx_lens, offsets, group=G, sm_scale=sm_scale,
         )
         attn = attn.reshape(B, n_kv, W, G, D).transpose(1, 2).reshape(B, W, spec.n_heads * D)
-        h = h + linear(attn, layer["o_proj"])
-        h = h + _mlp(spec, layer, rms_norm(h, layer["post_norm"], spec.rms_eps))
+        h = h + _attn_out(layer, attn, act_quant=act_quant)
+        h = h + _mlp(spec, layer, rms_norm(h, layer["post_norm"], spec.rms_eps),
+                     act_quant=act_quant)
     return h, cache
 
 
@@ -318,6 +333,8 @@ def decode_step(
     positions: torch.Tensor,     # [B] int32 0-based position of this token
     cache,                       # PagedKVCache
     block_tables: torch.Tensor,  # [B, max_pages] int32
+    *,
+    act_quant: bool = False,
 ):
     """One decode step for the whole batch; returns (logits [B, V] f32, cache)."""
     B = tokens.shape[0]
@@ -330,7 +347,7 @@ def decode_step(
 
     for li, layer in enumerate(params["layers"]):
         x = rms_norm(h, layer["input_norm"], spec.rms_eps)
-        q, k, v = _qkv(spec, layer, x)
+        q, k, v = _qkv(spec, layer, x, act_quant=act_quant)
         q = apply_rope(_heads(spec, q, spec.n_heads), cos, sin)
         k = apply_rope(_heads(spec, k, spec.n_kv_heads), cos, sin)
         v = _heads(spec, v, spec.n_kv_heads)                 # [B, n_kv, D]
@@ -340,7 +357,9 @@ def decode_step(
             qg, cache.k_pages[li], cache.k_scales[li], cache.v_pages[li], cache.v_scales[li],
             block_tables, seq_lens, sm_scale=sm_scale,
         )
-        h = h + linear(attn.reshape(B, spec.n_heads * spec.head_dim), layer["o_proj"])
-        h = h + _mlp(spec, layer, rms_norm(h, layer["post_norm"], spec.rms_eps))
+        h = h + _attn_out(layer, attn.reshape(B, spec.n_heads * spec.head_dim),
+                          act_quant=act_quant)
+        h = h + _mlp(spec, layer, rms_norm(h, layer["post_norm"], spec.rms_eps),
+                     act_quant=act_quant)
 
-    return _logits(params, spec, h), cache
+    return _logits(params, spec, h, act_quant=act_quant), cache

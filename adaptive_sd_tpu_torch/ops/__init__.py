@@ -10,7 +10,13 @@ from .attention import (
     prefill_attention,
     prefill_attention_ref,
 )
-from .matmul_q import linear_q, quantized_matmul, quantized_matmul_ref
+from .matmul_q import (
+    linear_q,
+    quantized_matmul,
+    quantized_matmul_ref,
+    quantized_matmul_w8a8,
+    quantized_matmul_w8a8_ref,
+)
 from .quant import (
     QuantizedTensor,
     pack_int4,
@@ -24,7 +30,11 @@ from .sampling import (
     SampleResult,
     adjusted_logits,
     greedy_sample,
+    logprob_stats,
+    row_adjusted_logits,
     sample,
+    sample_rows,
+    sample_rows_with_topk,
     sample_with_topk,
     speculative_accept,
 )
@@ -33,6 +43,8 @@ __all__ = [
     "QuantizedTensor", "SampleResult", "adjusted_logits", "greedy_sample", "linear_q", "pack_int4", "paged_attention",
     "paged_attention_ref", "paged_window_attention", "paged_window_attention_ref",
     "prefill_attention", "prefill_attention_ref", "quantize_int4", "quantize_int8",
-    "quantize_kv_int8", "quantized_matmul", "quantized_matmul_ref", "sample",
-    "sample_with_topk", "speculative_accept", "unpack_int4", "unpack_int4_halves",
+    "quantize_kv_int8", "quantized_matmul", "quantized_matmul_ref", "quantized_matmul_w8a8",
+    "quantized_matmul_w8a8_ref", "logprob_stats", "row_adjusted_logits", "sample", "sample_rows",
+    "sample_rows_with_topk", "sample_with_topk", "speculative_accept", "unpack_int4",
+    "unpack_int4_halves",
 ]

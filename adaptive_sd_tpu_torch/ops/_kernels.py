@@ -28,6 +28,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "int8_matmul": ("matmul_int8.cu", "asd_int8_matmul", [_P] * 5 + [_I] * 7 + [_P]),
     "int4_matmul": ("matmul_int4.cu", "asd_int4_matmul", [_P] * 5 + [_I] * 9 + [_P]),
+    "w8a8_matmul": ("matmul_w8a8.cu", "asd_w8a8_matmul", [_P] * 7 + [_I] * 9 + [_P]),
     "paged_decode": ("paged_decode.cu", "asd_paged_decode", [_P] * 8 + [_I] * 7 + [_F, _I, _P]),
     "paged_window": ("paged_window.cu", "asd_paged_window", [_P] * 9 + [_I] * 8 + [_F, _I, _P]),
 }

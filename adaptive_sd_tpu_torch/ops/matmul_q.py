@@ -14,6 +14,13 @@ applied after the reduction. Dispatch mirrors the JAX wrapper
   hand-written Hopper kernel ``csrc/matmul_int4.cu`` at every M, as the JAX
   wrapper keeps INT4 in its Pallas kernels at every M. It launches or raises;
   nothing on a CUDA tensor leads to the plain version.
+
+W8A8 (``quantized_matmul_w8a8``, reached by ``linear_q(act_quant=True)`` on
+INT8 weights): per-row dynamic INT8 activations times the INT8 weights, summed
+in int32, then the row and column scales. On CUDA the hand-written Hopper
+kernel ``csrc/matmul_w8a8.cu`` at every M (the JAX route has no large-M exit
+on this branch); on the CPU the plain version, whose integer sum is exact, so
+the two agree bit for bit in f32.
 """
 
 from __future__ import annotations
@@ -36,6 +43,10 @@ _INT4_RTILE = 128   # packed rows per step of that kernel (csrc/matmul_int4.cu s
 int8_matmul_counter = _kernels.LaunchCounter()
 int4_matmul_counter = _kernels.LaunchCounter()   # per-channel layout (scale [N])
 int4g_matmul_counter = _kernels.LaunchCounter()  # grouped layout (scale [K/gs, N])
+w8a8_matmul_counter = _kernels.LaunchCounter()
+
+_W8A8_SMALL_M = 16  # M up to which W8A8 takes the weight-streaming kernel
+_W8A8_TILE = 128    # rows and columns of a block tile of the tensor-core kernel
 
 
 def quantized_matmul_ref(
@@ -184,8 +195,116 @@ def quantized_matmul(
     return int8_matmul_cuda(x, q, scale).to(out_dtype)
 
 
-def linear_q(x: torch.Tensor, t: QuantizedTensor) -> torch.Tensor:
-    """Apply a quantized linear layer to activations of any leading shape."""
+def quantize_rows_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-row symmetric INT8 quantisation of activations x [M, K]:
+    ``xs = max(max|x| / 127, 1e-8)`` in f32, ``xq = clip(round(x / xs))`` with
+    a true division and round-half-to-even. Returns (xq int8 [M, K], xs f32
+    [M, 1]). The divisor 127 is a tensor on purpose: PyTorch's CUDA division
+    by a Python scalar multiplies by its reciprocal, which differs from the
+    true division (of the CPU, of the JAX package and of the kernel) in the
+    last bit for some rows."""
+    xf = x.float()
+    amax = xf.abs().amax(dim=1, keepdim=True)
+    xs = (amax / torch.full_like(amax, 127.0)).clamp(min=1e-8)
+    xq = torch.clamp(torch.round(xf / xs), -127, 127).to(torch.int8)
+    return xq, xs
+
+
+def quantized_matmul_w8a8_ref(
+    x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *, out_dtype=None
+) -> torch.Tensor:
+    """Plain PyTorch version of W8A8: the same quantisation, an exact integer
+    product, then ``acc * xs * ws`` in f32 (row scale first). An f32 matmul
+    is not exact here (K * 127**2 passes 2**24 above K = 1040), so the product
+    is int32 on the CPU and f64 on a card, where PyTorch has no integer
+    matmul; both are exact, so the result does not depend on the order of the
+    sum."""
+    out_dtype = out_dtype or x.dtype
+    xq, xs = quantize_rows_int8(x)
+    if x.device.type == "cpu":
+        acc = torch.matmul(xq.to(torch.int32), q.to(torch.int32))
+    else:
+        acc = torch.matmul(xq.double(), q.double())
+    return (acc.float() * xs * scale[None, :].float()).to(out_dtype)
+
+
+def _w8a8_plan(M: int, N: int, K: int, n_sm: int) -> tuple[int, int, int]:
+    """(large, splits, k_per_split) for the W8A8 kernel. ``large`` 0: the
+    weight-streaming kernel (M <= 16), K split as the weight-only INT8 kernel
+    splits it. ``large`` 1: the tensor-core kernel, K split only while its
+    128x128 tiles leave SMs idle. Every split is a multiple of 128 k-rows."""
+    if M <= _W8A8_SMALL_M:
+        return (0, *_split_k(M, N, K, n_sm))
+    blocks = math.ceil(M / _W8A8_TILE) * math.ceil(N / _W8A8_TILE)
+    splits = max(1, min(math.ceil(2 * n_sm / blocks), math.ceil(K / 512)))
+    if blocks >= n_sm:
+        splits = 1
+    k_per = math.ceil(math.ceil(K / splits) / _KTILE) * _KTILE
+    return 1, math.ceil(K / k_per), k_per
+
+
+def int8x8_matmul_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Launch the Hopper W8A8 kernel: x [M, K] bf16/f32 CUDA, q [K, N] int8,
+    scale [N] f32 -> [M, N] in x.dtype. The activations are quantised by the
+    kernel library's prologue into a workspace allocated here."""
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"w8a8 matmul kernel takes bf16/f32 x, got {x.dtype}")
+    if q.dtype != torch.int8 or scale.dtype != torch.float32:
+        raise TypeError(f"expected int8 q and f32 scale, got {q.dtype}, {scale.dtype}")
+    if not (x.is_cuda and q.is_cuda and scale.is_cuda):
+        raise ValueError("int8x8_matmul_cuda takes CUDA tensors")
+    x, q, scale = x.contiguous(), q.contiguous(), scale.contiguous()
+    M, K = x.shape
+    N = q.shape[1]
+    if q.shape[0] != K or scale.shape != (N,):
+        raise ValueError(f"shapes do not fit: x {tuple(x.shape)}, q {tuple(q.shape)}, "
+                         f"scale {tuple(scale.shape)}")
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    if M == 0:
+        return out
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    large, splits, k_per = _w8a8_plan(M, N, K, n_sm)
+    Kp = math.ceil(K / 16) * 16
+    xq = torch.empty((M, Kp), dtype=torch.int8, device=x.device)
+    xs = torch.empty((M,), dtype=torch.float32, device=x.device)
+    partial = (torch.empty((splits, M, N), dtype=torch.int32, device=x.device)
+               if splits > 1 else None)
+    vec = int(N % 16 == 0 and q.data_ptr() % 16 == 0)
+    rc = _kernels.function("w8a8_matmul")(
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), xq.data_ptr(),
+        xs.data_ptr(), partial.data_ptr() if partial is not None else None,
+        M, N, K, Kp, splits, k_per, int(x.dtype == torch.bfloat16), vec, large,
+        _kernels.stream_of(x),
+    )
+    _kernels.check(rc, "w8a8 matmul")
+    w8a8_matmul_counter.launched(M, K, N, 0, x.dtype)
+    return out
+
+
+def quantized_matmul_w8a8(
+    x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, *, out_dtype=None
+) -> torch.Tensor:
+    """W8A8 dynamic: per-row INT8 activation quantisation, an int8 x int8
+    product summed in int32, then the row and column scales. x: [M, K]
+    bf16/f32; q: [K, N] int8 (the weight-only INT8 layout); scale: [N]."""
+    if x.ndim != 2 or q.ndim != 2:
+        raise ValueError(f"expected 2-D x and q, got {tuple(x.shape)} and {tuple(q.shape)}")
+    if x.shape[1] != q.shape[0]:
+        raise ValueError(f"K mismatch: x has {x.shape[1]}, q has {q.shape[0]}")
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return quantized_matmul_w8a8_ref(x, q, scale, out_dtype=out_dtype)
+    return int8x8_matmul_cuda(x, q, scale).to(out_dtype)
+
+
+def linear_q(x: torch.Tensor, t: QuantizedTensor, *, act_quant: bool = False) -> torch.Tensor:
+    """Apply a quantized linear layer to activations of any leading shape.
+    ``act_quant``: the W8A8 path (INT8 activations), for INT8 weights only;
+    other weights keep their weight-only kernels."""
     lead = x.shape[:-1]
-    y = quantized_matmul(x.reshape(-1, x.shape[-1]), t.q, t.scale, bits=t.bits)
+    x2 = x.reshape(-1, x.shape[-1])
+    if act_quant and t.bits == 8:
+        y = quantized_matmul_w8a8(x2, t.q, t.scale)
+    else:
+        y = quantized_matmul(x2, t.q, t.scale, bits=t.bits)
     return y.reshape(*lead, t.out_features)

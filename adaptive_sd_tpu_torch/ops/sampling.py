@@ -129,3 +129,87 @@ def speculative_accept(
     dist = torch.where(use_target, p_here, resid)
     next_tok = _categorical(torch.log(torch.clamp(dist, min=1e-30)), generator)
     return n_acc, next_tok, _take(logp_here, next_tok)
+
+
+def row_adjusted_logits(
+    logits: torch.Tensor, temperatures: torch.Tensor, top_ps: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """Per-ROW temperature + nucleus adjustment (the vectorised form of
+    :func:`adjusted_logits` for the continuous-batching lanes, whose requests
+    carry their own temperature and top_p). ``logits`` is [B, V] or
+    [B, S, V]; ``temperatures`` and ``top_ps`` are [B] tensors on the same
+    device. Greedy rows (temperature <= 0) pass through at T=1 unfiltered:
+    their argmax is taken separately. Nothing here reads a value back to the
+    host."""
+    logits = logits.float()
+    t_shape = (-1,) + (1,) * (logits.ndim - 1)
+    greedy = temperatures <= 0.0
+    safe_t = torch.where(greedy, torch.ones_like(temperatures), temperatures).float()
+    scaled = logits / safe_t.reshape(t_shape)
+    if top_ps is None:
+        return scaled
+    sorted_logits = torch.sort(scaled, dim=-1, descending=True).values
+    probs = torch.softmax(sorted_logits, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    p_row = top_ps.float().reshape(t_shape)
+    keep = cum - probs < p_row  # always keeps each row's top token
+    inf = torch.full_like(sorted_logits, float("inf"))
+    cutoff = torch.where(keep, sorted_logits, inf).amin(dim=-1, keepdim=True)
+    apply = (p_row < 1.0) & ~greedy.reshape(t_shape)
+    return torch.where(apply & (scaled < cutoff), torch.full_like(scaled, float("-inf")), scaled)
+
+
+def sample_rows(
+    logits: torch.Tensor,
+    generator: Optional[torch.Generator],
+    temperatures: torch.Tensor,
+    top_ps: Optional[torch.Tensor] = None,
+) -> SampleResult:
+    """Per-row temperature (+ nucleus) sampling in one pass: rows with
+    temperature <= 0 take the argmax and report the log-softmax of the raw
+    logits (the convention of :func:`greedy_sample`)."""
+    return sample_rows_with_topk(logits, generator, temperatures, 0, top_ps)[0]
+
+
+def sample_rows_with_topk(
+    logits: torch.Tensor,
+    generator: Optional[torch.Generator],
+    temperatures: torch.Tensor,
+    k: int,
+    top_ps: Optional[torch.Tensor] = None,
+) -> tuple[SampleResult, Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """:func:`sample_rows` that also returns the top-k of each row's adjusted
+    distribution, (result, topk_ids [B, k] int32, topk_probs [B, k] f32): the
+    per-lane draft support a later tier needs for the exact stochastic
+    verify. ``k`` 0 returns (result, None, None). Greedy rows' support rows
+    are of the unscaled softmax and are unused downstream."""
+    greedy = temperatures <= 0.0
+    scaled = row_adjusted_logits(logits, temperatures, top_ps)
+    cat = _categorical(scaled, generator)
+    arg = torch.argmax(logits, dim=-1).to(torch.int32)
+    token = torch.where(greedy, arg, cat)
+    logp = torch.log_softmax(scaled, dim=-1)
+    res = SampleResult(token, _take(logp, token))
+    if not k:
+        return res, None, None
+    top_lp, top_ids = torch.topk(logp, k, dim=-1)
+    return res, top_ids.to(torch.int32), torch.exp(top_lp)
+
+
+def logprob_stats(logprobs: torch.Tensor, length) -> dict[str, torch.Tensor]:
+    """Summary statistics over per-token logprobs [n] with the padding past
+    ``length`` masked: mean, std, min and the share below log(0.1), feature
+    inputs of the quality predictor."""
+    n = logprobs.shape[-1]
+    mask = torch.arange(n, device=logprobs.device) < length
+    cnt = mask.sum().clamp(min=1)
+    zero = torch.zeros_like(logprobs)
+    mean = torch.where(mask, logprobs, zero).sum() / cnt
+    var = torch.where(mask, (logprobs - mean) ** 2, zero).sum() / cnt
+    mn = torch.where(mask, logprobs, torch.full_like(logprobs, float("inf"))).min()
+    return {
+        "mean": mean,
+        "std": torch.sqrt(var),
+        "min": mn,
+        "frac_low_conf": (mask & (logprobs < -2.3)).sum() / cnt,  # p < 0.1
+    }

@@ -15,11 +15,22 @@ Phases, one JSON line each; any failure exits non-zero:
 3. reference: small f32 engines (INT8, INT4 per-channel, INT4 grouped) on the
    card give the same greedy tokens as the same engines on the CPU (plain
    versions), and ``generate_with_policy`` gives the CPU's escalation flags.
+   reference_sched: the same through ``ContinuousBatchingScheduler``, with and
+   without ``act_quant``: plain, drafted, prefix-cached and swap-preempted
+   requests give the CPU's tokens, accepted counts and preemption counts
+   (W8A8 engines: the CPU's logprobs on the CPU's tokens and every count; a
+   greedy walk may part from the CPU's only at a near-tie, which is shown).
 4. serve: the cascade hop of the default hierarchy at full width and depth,
    INT8 weights and KV: Qwen2.5-7B (bf16 activations) ``generate``s drafts for
    four prompts, Qwen2.5-14B (f32 activations, prefix cache on)
    ``verify_continue``s them, then verifies its own greedy output, which
    it must accept in full, and a repeated prompt must hit the prefix cache.
+   scheduler: ``ContinuousBatchingScheduler`` over a W8A8 (``act_quant``)
+   engine on the 7B tier's INT8 weights, 28 layers, 8 lanes, 8-step scans:
+   twelve requests in two waves, then the same under KV-page pressure with
+   recompute and with swap preemption (outputs equal to the unpressured run),
+   then every output resubmitted as a draft; tokens/s, dispatches by kind and
+   the scan's device idle share.
 5. per_channel: an engine of Qwen2.5-7B width (depth cut to 4 layers) with
    per-channel INT4 weights generates and verifies its own output.
 6. pipeline: ``AdaptiveCascadePipeline`` over three tiers at full width and
@@ -30,6 +41,11 @@ Phases, one JSON line each; any failure exits non-zero:
    three requests climb every tier together. Before
    it, the 14B INT4 tier verifies its own greedy output in bf16 and in f32
    activations; the INT4 tiers run the first type that accepts in full.
+   scheduled_pipeline: ``ScheduledCascadePipeline`` over 7B INT8 W8A8 -> 14B
+   INT4 -> 32B INT4 (the same engines and weights), prefix cache and prefetch
+   on: eight concurrent submits, one streamed request, a forced walk, a
+   response-cache hit; every decision recomputed on the host; stages and
+   tokens held against ``AdaptiveCascadePipeline`` over the same engines.
 7. step: one decode step of each tier, its launches per kernel, its time and
    the device's busy time by kernel (torch.profiler).
 8. path_shapes: the matmul wrappers collected every distinct (M, K, N, group
@@ -37,7 +53,9 @@ Phases, one JSON line each; any failure exits non-zero:
    against its plain version at every one of them.
 
 The kernels' launch counters are zeroed just before each of the paths 4, 5
-and 6 and read just after; every kernel of a path must have been launched.
+and 6 (the scheduler and scheduled_pipeline paths too) and read just after;
+every kernel of a path must have been launched. The scheduled_pipeline path
+counts the scheduled plane's runs only, not the fused runs it is held against.
 The last lines: the card's name and power limit as nvidia-smi reports them,
 one ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": {...}}``.
 Weights are random, made on the card from fixed seeds. It exits non-zero
@@ -62,10 +80,11 @@ from adaptive_sd_tpu_torch.cascade import (
     AdaptiveCascadePipeline,
     EngineTextStage,
     PipelineConfig,
+    ScheduledCascadePipeline,
     StageManager,
 )
 from adaptive_sd_tpu_torch.core.types import RequestContext
-from adaptive_sd_tpu_torch.engine import TierEngine
+from adaptive_sd_tpu_torch.engine import ContinuousBatchingScheduler, TierEngine
 from adaptive_sd_tpu_torch.engine.decode import _bucket_len
 from adaptive_sd_tpu_torch.models import (
     DEFAULT_CASCADE,
@@ -113,14 +132,30 @@ M_WINDOWS = tuple(_bucket_len(max(PIPE_PROMPT_LENS) + MAX_NEW - cached, 64)
 M_PREFILL = 4 * _bucket_len(max(PIPE_PROMPT_LENS) + MAX_NEW, 64)
 PER_CHANNEL_LAYERS = 4
 INLINE_LAM = 0.05  # lambda of tier 0's on-device policy
+# The scheduler phase: 8 lanes, 8-step scans, twelve requests in two waves (8,
+# then 4 while the first are decoding). Each decodes past a page boundary of
+# its admission grant (which always leaves more than a page of room), so that
+# a pool sized to the first wave's grants runs out while lanes grow.
+# reference_sched, W8A8 engines on two devices (TINY128, f32): the tolerance of
+# the teacher-forced logprobs
+W8A8_FORCED_TOL = 0.08
+SCHED_LANES = 8
+SCHED_SCAN = 8
+SCHED_MAX_NEW = 160
+SCHED_CONTEXT = 1024
+SCHED_PROMPT_LENS = (40, 110, 500, 230, 360, 75, 490, 240, 120, 370, 100, 450)
+# W8A8 rows in the kernels phase: decode lanes, then verify/admission windows
+W8A8_M_SMALL = (1, 4, 8)
+W8A8_M_WINDOWS = (192, 576, 2304)
 
 # Published rates of the card by name (NVIDIA data sheets, dense, at the full
-# power limit): memory bytes/s, then flop/s for bf16 (tensor cores) and f32.
+# power limit): memory bytes/s, then operations/s for bf16 and int8 (tensor
+# cores) and f32.
 _RATES = (
-    ("H100 PCIe", 2.0e12, {torch.bfloat16: 756e12, torch.float32: 51e12}),
-    ("H100 NVL", 3.9e12, {torch.bfloat16: 835e12, torch.float32: 60e12}),
-    ("H200", 4.8e12, {torch.bfloat16: 989e12, torch.float32: 67e12}),
-    ("H100", 3.35e12, {torch.bfloat16: 989e12, torch.float32: 67e12}),
+    ("H100 PCIe", 2.0e12, {torch.bfloat16: 756e12, torch.float32: 51e12, torch.int8: 1513e12}),
+    ("H100 NVL", 3.9e12, {torch.bfloat16: 835e12, torch.float32: 60e12, torch.int8: 1671e12}),
+    ("H200", 4.8e12, {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}),
+    ("H100", 3.35e12, {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}),
 )
 
 # Matmul kernel against its plain version. f32 sums in another order; in bf16
@@ -129,7 +164,14 @@ _RATES = (
 MM_TOL = {torch.bfloat16: {"atol": 2e-2, "rtol": 1e-2},
           torch.float32: {"atol": 1e-4, "rtol": 1e-4}}
 
+# W8A8 sums in int32, so the kernel equals its plain version bit for bit (and
+# both round an equal f32 to bf16 once): no tolerance.
+W8A8_TOL = {"atol": 0.0, "rtol": 0.0}
+
 _KERNELS = {
+    "w8a8_matmul": dict(route="cuda", source="adaptive_sd_tpu_torch/csrc/matmul_w8a8.cu",
+                        replaces="adaptive_sd_tpu/ops/matmul_q.py:300",
+                        counter=MQ.w8a8_matmul_counter),
     "int8_matmul": dict(route="cuda", source="adaptive_sd_tpu_torch/csrc/matmul_int8.cu",
                         replaces="adaptive_sd_tpu/ops/matmul_q.py:111",
                         counter=MQ.int8_matmul_counter),
@@ -232,7 +274,7 @@ def phase_kernels(dev, rates, timer) -> dict:
     results = {k: [] for k in _KERNELS}
 
     def check(kernel, shape, dtype, out, ref, tol, nbytes, ops, fn_k, fn_p, fn_lib=None,
-              valid=None, reps=None):
+              valid=None, reps=None, ops_dtype=None):
         diff = (out.float() - ref.float()).abs()
         lim = tol["atol"] + tol["rtol"] * ref.float().abs()
         if valid is not None:
@@ -241,7 +283,7 @@ def phase_kernels(dev, rates, timer) -> dict:
         if not torch.isfinite(out.float()).all() or bool((diff > lim).any()):
             fail(f"{kernel} {shape}: kernel disagrees with its plain version "
                  f"(max abs err {err}, tol {tol})")
-        b_ms, b_by = bound_ms(nbytes, ops, dtype, rates)
+        b_ms, b_by = bound_ms(nbytes, ops, ops_dtype or dtype, rates)
         row = {"kernel": kernel, "shape": shape, "dtype": str(dtype), "max_abs_err": err,
                "tol": tol, "kernel_ms": timer(fn_k, reps), "plain_ms": timer(fn_p, reps),
                "library_ms": timer(fn_lib, reps) if fn_lib else None,
@@ -270,6 +312,41 @@ def phase_kernels(dev, rates, timer) -> dict:
                   fn_p=lambda: MQ.quantized_matmul_ref(x, q, scale),
                   fn_lib=_int8pack_call(x, q, scale))
             del q, x
+
+    # W8A8 (csrc/matmul_w8a8.cu): the five Qwen2.5-7B projections at the
+    # scheduler's decode lanes and at admission/verify windows, both types,
+    # and ragged shapes. The kernel must EQUAL its plain version (int32 sums
+    # are exact). Bound: bytes at small M, INT8 tensor-core operations above.
+    # Library yardstick: the same function from PyTorch calls around
+    # torch._int_mm, where it takes the shape (it refuses M <= 16).
+    def w8a8_case(label, M, K, N, dtype, reps=None):
+        esize = torch.empty((), dtype=dtype).element_size()
+        q = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+        scale = (1.0 + 0.1 * torch.rand(N, generator=g, device=dev)) / (64 * math.sqrt(K))
+        x = torch.randn(M, K, generator=g, device=dev).to(dtype)
+        out = MQ.int8x8_matmul_cuda(x, q, scale)
+        ref = MQ.quantized_matmul_w8a8_ref(x, q, scale)
+        check("w8a8_matmul", f"{label} M={M} K={K} N={N}", dtype, out, ref, W8A8_TOL,
+              nbytes=M * K * esize + K * N + N * 4 + M * N * esize, ops=2 * M * N * K,
+              fn_k=lambda: MQ.int8x8_matmul_cuda(x, q, scale),
+              fn_p=lambda: MQ.quantized_matmul_w8a8_ref(x, q, scale),
+              fn_lib=_int_mm_call(x, q, scale), reps=reps, ops_dtype=torch.int8)
+        del q, x, out, ref
+        torch.cuda.empty_cache()
+
+    s7 = get_spec(DEFAULT_CASCADE[0])
+    shapes7 = {"qkv": (s7.hidden, (s7.n_heads + 2 * s7.n_kv_heads) * s7.head_dim),
+               "o": (s7.n_heads * s7.head_dim, s7.hidden), "gateup": (s7.hidden, 2 * s7.ffn),
+               "down": (s7.ffn, s7.hidden), "lm_head": (s7.hidden, s7.vocab_size)}
+    for dtype in (torch.bfloat16, torch.float32):
+        for M, (proj, (K, N)) in itertools.product(W8A8_M_SMALL, shapes7.items()):
+            w8a8_case(f"{s7.name}:{proj}", M, K, N, dtype)
+        for M, (proj, (K, N)) in itertools.product(W8A8_M_WINDOWS, shapes7.items()):
+            w8a8_case(f"{s7.name}:{proj}", M, K, N, dtype, reps=2)
+        # ragged K (not a multiple of 4 or of 16) and N (not a multiple of 16),
+        # on both kernels, with K split across blocks
+        for M, K, N in ((7, 515, 4099), (16, 4100, 130), (100, 1001, 203), (300, 2050, 4099)):
+            w8a8_case("ragged", M, K, N, dtype, reps=3)
 
     # INT4 weight-only matmul (csrc/matmul_int4.cu). Same tolerance and reason
     # as INT8: f32 sums in another order (per group, then across groups),
@@ -399,6 +476,26 @@ def _int8pack_call(x, q, scale):
     return lambda: fn(x, w_nk, s)
 
 
+def _int_mm_call(x, q, scale):
+    """W8A8 from PyTorch calls (row quantisation, torch._int_mm, the two
+    scales) as the library yardstick, where this build's _int_mm takes the
+    shape."""
+    fn = getattr(torch, "_int_mm", None)
+    if fn is None:
+        return None
+
+    def call():
+        xq, xs = MQ.quantize_rows_int8(x)
+        return (fn(xq, q).float() * xs * scale[None, :]).to(x.dtype)
+
+    try:
+        call()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError):
+        return None
+    return call
+
+
 def _to_device(params, dev):
     return {
         "embed": params["embed"].to(dev), "final_norm": params["final_norm"].to(dev),
@@ -469,6 +566,232 @@ def phase_reference(dev) -> None:
         if ec.tolist() != eg.tolist() or float(np.abs(pc - pg).max()) > 1e-4:
             fail(f"generate_with_policy: decision on the card differs from the CPU's: {rows[-1]}")
     emit({"phase": "reference_policy", "spec": TINY128.name, "p_hat_tol": 1e-4, "rows": rows})
+
+
+def _drain(sched, reqs, what: str) -> None:
+    """run_until_idle, then fail on any request error or unfinished request."""
+    sched.run_until_idle()
+    for r in reqs:
+        if r.error is not None or not r.done:
+            fail(f"{what}: request {r.request_id} error={r.error} done={r.done}")
+
+
+def _sched_reference_run(engine, tight, after_plain=lambda: None) -> dict:
+    """The requests of the reference_sched phase through one scheduler over
+    ``engine`` (prefix cache on) and, for the preempted part, over ``tight``
+    (a 4-page pool): everything a comparison needs, as plain lists.
+    ``after_plain`` is called when the first round has drained."""
+    rng = np.random.default_rng(4)
+    vocab = engine.spec.vocab_size
+    prompts = [[int(t) for t in rng.integers(1, vocab, n)] for n in (37, 150, 300)]
+    sched = ContinuousBatchingScheduler(engine, max_batch=4, max_context=512, scan_steps=4)
+    plain = [sched.submit(p, max_new=16) for p in prompts]
+    _drain(sched, plain, "reference_sched plain")
+    after_plain()
+    own = [r.out_tokens for r in plain]
+    bad = list(own[2])
+    bad[5] = bad[5] % (vocab - 1) + 1
+    # the second round finds the prompts' full pages in the prefix cache; each
+    # carries a draft: its own output, and one corrupted at token 5
+    drafted = [sched.submit(p, max_new=16, draft=d) for p, d in zip(prompts, (own[0], own[1], bad))]
+    _drain(sched, drafted, "reference_sched drafted")
+    out = {"plain": own, "drafted": [r.out_tokens for r in drafted], "prompts": prompts,
+           "n_accepted": [r.n_accepted for r in drafted],
+           "n_reused": [r.n_reused for r in drafted]}
+    # two lanes admitted with two pages each into a 4-page pool; the first
+    # outgrows its grant (position 247 of 260) and the newer lane yields
+    long_prompts = [[int(t) for t in rng.integers(1, vocab, n)] for n in (120, 100)]
+    for mode in ("none", "swap", "recompute"):
+        eng = engine if mode == "none" else tight
+        sched = ContinuousBatchingScheduler(eng, max_batch=2, max_context=512, scan_steps=4,
+                                            preemption_mode="swap" if mode == "none" else mode)
+        reqs = [sched.submit(p, max_new=140) for p in long_prompts]
+        _drain(sched, reqs, f"reference_sched {mode}")
+        st = sched.stats()
+        out[f"long_{mode}"] = [r.out_tokens for r in reqs]
+        out[f"counts_{mode}"] = [sched.preemptions, sched.swap_preemptions,
+                                 st["dispatch"]["swap_out"]["n"], st["dispatch"]["swap_in"]["n"],
+                                 [r.preemptions for r in reqs]]
+        if eng.allocator.stats().active_requests != eng.prefix_cache.stats()["entries"]:
+            fail(f"reference_sched {mode}: pages leaked")
+    return out
+
+
+def _teacher_forced(engine, prompts, drafts) -> tuple:
+    """One verify admission of [prompt + draft] rows on ``engine`` (dense
+    prefill, no prefix reuse): (accepted counts, logprobs of the draft
+    tokens). Both devices score the SAME tokens, so the numbers differ by
+    the devices' arithmetic only, not by where a trajectory went."""
+    n, d = len(prompts), len(drafts[0])
+    tokens = np.zeros((4, 512), np.int32)
+    p_lens, t_lens = np.ones(4, np.int32), np.ones(4, np.int32)
+    tables = np.full((4, 4), engine.allocator.n_pages, np.int32)
+    rids = [f"smoke_tf_{i}" for i in range(n)]
+    try:
+        for i, (p, dr) in enumerate(zip(prompts, drafts)):
+            tokens[i, : len(p) + d] = list(p) + list(dr)
+            p_lens[i], t_lens[i] = len(p), len(p) + d
+            tables[i] = engine.allocator.alloc(rids[i], 4)
+        n_acc, _, _, dlp, _ = engine.verify_admit_sample_batch(
+            tokens, p_lens, t_lens, tables, np.zeros(4, np.float32), 0, max_draft=d)
+    finally:
+        for r in rids:
+            engine.allocator.free_request(r)
+    return [int(x) for x in n_acc[:n]], dlp[:n]
+
+
+class _W8A8Recorder:
+    """While installed, keeps every ``quantized_matmul_w8a8`` call's input and
+    output (f32 copies on the host), in call order."""
+
+    def __init__(self):
+        self.calls = []
+        self.recording = True
+
+    def __enter__(self):
+        self._launch = launch = MQ.quantized_matmul_w8a8
+
+        def recording(x, q, scale, **kw):
+            y = launch(x, q, scale, **kw)
+            if self.recording:
+                self.calls.append((x.float().cpu(), y.float().cpu()))
+            return y
+
+        MQ.quantized_matmul_w8a8 = recording
+        return self
+
+    def stop(self) -> None:
+        """Record no more (the wrapper stays installed until the exit)."""
+        self.recording = False
+
+    def __exit__(self, *exc):
+        MQ.quantized_matmul_w8a8 = self._launch
+
+
+def _w8a8_parting(cpu_calls, card_calls, per_forward: int, lane: int, prompt_len: int,
+                  cpu_tokens, card_tokens) -> dict:
+    """Where the card's greedy walk of one lane parts from the CPU's, read
+    from the two devices' recorded W8A8 calls of that very run (``per_forward``
+    calls a forward, the last one the lm_head; forward 0 the admission
+    prefill, forward i the decode step that chose token i). Until the parting
+    both devices fed the lane the same tokens, so its activations differ by
+    the devices' f32 arithmetic alone. Returns how many of the lane's
+    activation bytes differ by forward, the first flipped byte's projection
+    with the relative difference of the f32 inputs that were quantised there,
+    and the logits at the parting."""
+    at = next(i for i, (a, b) in enumerate(zip(cpu_tokens, card_tokens)) if a != b)
+    row = {"lane": lane, "first_difference_at": at, "tokens": [cpu_tokens[at], card_tokens[at]]}
+    differing, total, first = [], 0, None
+    for f in range(at + 1):
+        calls = range(f * per_forward, (f + 1) * per_forward)
+        lanes = cpu_calls[calls[-1]][0].shape[0]   # the lm_head takes one row a lane
+        n = 0
+        for j in calls:
+            # the lane's rows: one, or the prompt's of a padded prefill
+            xc, xk = (c[j][0].reshape(lanes, -1, c[j][0].shape[-1])[lane][:prompt_len]
+                      for c in (cpu_calls, card_calls))
+            step = (MQ.quantize_rows_int8(xc)[0].int() - MQ.quantize_rows_int8(xk)[0].int()).abs()
+            flips = int((step > 0).sum())
+            total += xc.numel()
+            n += flips
+            if flips and first is None:
+                first = {"forward": f, "projection": j - calls[0], "bytes": flips,
+                         "max_byte_step": int(step.max()),
+                         "max_rel_input_diff": float((xc - xk).abs().max() / xc.abs().max())}
+        differing.append(n)
+    lc, lk = (c[(at + 1) * per_forward - 1][1][lane].double() for c in (cpu_calls, card_calls))
+    row.update({"lane_activation_bytes": total, "differing_by_forward": differing,
+                "first_flip": first,
+                "chosen_by_logits": [int(lc.argmax()), int(lk.argmax())],
+                "cpu_token_over_card_token_on_cpu": float(lc[cpu_tokens[at]] - lc[card_tokens[at]]),
+                "card_token_over_cpu_token_on_card": float(lk[card_tokens[at]] - lk[cpu_tokens[at]]),
+                "max_logit_diff_between_devices": float((lc - lk).abs().max())})
+    return row
+
+
+def phase_reference_sched(dev) -> None:
+    """TINY128 f32 engines on the card against the same on the CPU through
+    ContinuousBatchingScheduler, with and without act_quant: plain, drafted,
+    prefix-cached and preempted (swap and recompute) requests. Weight-only
+    engines give the CPU's tokens. W8A8 engines re-round every activation to
+    INT8, so a last-bit difference between the devices' f32 sums now and then
+    flips an activation byte and moves a logit by ~1e-3, enough to part two
+    greedy walks over random weights at a near-tie: there the devices are
+    held to each other on the SAME tokens (teacher-forced logprobs), each to
+    itself (drafts accepted, preempted runs equal to the unpressured one),
+    and in every host-side count, and each walk's first parting is read from
+    the run's recorded W8A8 calls (``_w8a8_parting``): the lane's first
+    bytes must first differ by one rounding step and each device's logits
+    must choose its own token, or the parting is a fault."""
+    params = init_params_quantized(TINY128, 7, device="cpu", dtype=torch.float32)
+    on_card = _to_device(params, dev)
+    for act_quant in (False, True):
+        kw = dict(page_size=PAGE, enable_prefix_cache=True, act_quant=act_quant)
+        runs, forced, recorded = {}, {}, {}
+        for where, prm, device in (("cpu", params, "cpu"), ("card", on_card, dev)):
+            roomy = TierEngine(TINY128, prm, device=device, n_pages=32, **kw)
+            with _W8A8Recorder() as rec:   # the plain round's W8A8 calls
+                runs[where] = _sched_reference_run(
+                    roomy, TierEngine(TINY128, prm, device=device, n_pages=4, **kw),
+                    after_plain=rec.stop)
+            recorded[where] = rec.calls
+            # the CPU's tokens, scored by each device
+            forced[where] = _teacher_forced(roomy, runs["cpu"]["prompts"], runs["cpu"]["plain"])
+        cpu, card = runs["cpu"], runs["card"]
+        forced_err = float(np.abs(forced["cpu"][1] - forced["card"][1]).max())
+        # f32 sums in another order: 1e-3 as the CPU tests hold the engines to
+        # JAX; W8A8 adds flipped activation bytes (above): twice the 0.039
+        # measured on an NVIDIA H100 80GB HBM3
+        forced_tol = W8A8_FORCED_TOL if act_quant else 1e-3
+        per_forward = 4 * TINY128.n_layers + 1   # qkv, o, gateup, down a layer; lm_head
+        partings = [_w8a8_parting(recorded["cpu"], recorded["card"], per_forward, i, len(p), a, b)
+                    for i, (p, a, b) in enumerate(zip(cpu["prompts"], cpu["plain"], card["plain"]))
+                    if act_quant and a != b]
+        first32 = [a[:32] == b[:32] for a, b in zip(cpu["long_none"], card["long_none"])]
+        row = {"phase": "reference_sched", "spec": TINY128.name, "act_quant": act_quant,
+               "tokens_match": {k: cpu[k] == card[k] for k in ("plain", "drafted")},
+               "n_accepted": card["n_accepted"], "n_reused": card["n_reused"],
+               "counts[preemptions, swap, swap_out, swap_in, per request]": {
+                   m: card[f"counts_{m}"] for m in ("none", "swap", "recompute")},
+               "long_tokens_match_cpu": {m: cpu[f"long_{m}"] == card[f"long_{m}"]
+                                         for m in ("none", "swap", "recompute")},
+               "long_first32_match_cpu": first32,
+               "teacher_forced": {"n_accepted_cpu": forced["cpu"][0],
+                                  "n_accepted_card": forced["card"][0],
+                                  "max_logprob_diff": forced_err, "tol": forced_tol},
+               "partings": partings}
+        emit(row)
+        for d in partings:
+            # The walks may part only over re-rounded activations: each device's
+            # logits choose its own token, and where the lane's bytes first
+            # differ they differ by one step (inputs a rounding apart, not
+            # another product).
+            flip = d["first_flip"]
+            if d["chosen_by_logits"] != d["tokens"] or (flip and flip["max_byte_step"] != 1):
+                fail(f"reference_sched act_quant: the card's walk parts from the CPU's for "
+                     f"another reason than a re-rounded activation: {d}")
+        exact = ("plain", "drafted") if not act_quant else ()
+        for k in (*exact, "n_accepted", "n_reused", "counts_none", "counts_swap",
+                  "counts_recompute"):
+            if cpu[k] != card[k]:
+                fail(f"reference_sched act_quant={act_quant}: {k} on the card differs from the "
+                     f"CPU's: {card[k]} != {cpu[k]}")
+        if card["n_accepted"] != [16, 16, 5] or min(card["n_reused"][1:]) < PAGE:
+            fail(f"reference_sched: drafted admissions accepted {card['n_accepted']} and reused "
+                 f"{card['n_reused']}")
+        if card["counts_swap"][1] < 1 or card["counts_recompute"][0] < 1:
+            fail(f"reference_sched: the 4-page pool preempted nothing: {row}")
+        # a swap restore is bit-exact and a recompute re-prefills over the same
+        # INT8 pages: either way the lane ends where the unpressured run ends
+        for where, run in runs.items():
+            for mode in ("swap", "recompute"):
+                if run[f"long_{mode}"] != run["long_none"]:
+                    fail(f"reference_sched act_quant={act_quant} on the {where}: the "
+                         f"{mode}-preempted run differs from the unpressured run")
+        # 140 tokens of f32 sums in two orders may meet a near-tie; the first 32 must agree
+        if not act_quant and not all(first32):
+            fail(f"reference_sched act_quant={act_quant}: the card's first 32 tokens of the long "
+                 f"requests differ from the CPU's")
 
 
 def _call(fn, *args, **kw):
@@ -777,13 +1100,177 @@ def phase_pipeline(dev, tier0) -> tuple:
                       ("int8_matmul", "int4_matmul_grouped", "paged_decode", "paged_window"))
     # process_request isolates a failing tier and goes on to the next one; here
     # a tier that failed (a kernel that did not launch) fails the run
-    errors = [ln for ln in global_metrics().export_metrics("prometheus").splitlines()
-              if "errors_total" in ln and not ln.startswith("#") and float(ln.split()[-1]) > 0]
+    errors = _error_metrics()
     if errors:
         fail(f"pipeline: a stage or a request failed: {errors}")
     for pipe in pipes.values():
         pipe.shutdown()
     return launches, [tier1, tier2]
+
+
+def phase_scheduled_pipeline(dev, tier0_w8a8, int4_engines) -> dict:
+    """ScheduledCascadePipeline over 7B INT8 W8A8 -> 14B INT4 -> 32B INT4 at
+    full width and depth (the pipeline phase's engines and weights; tier 0 is
+    the scheduler phase's W8A8 engine), prefix cache and prefetch on. Returns
+    the launch counts of the run."""
+    engines = [tier0_w8a8, *int4_engines]
+    vocab = engines[0].spec.vocab_size
+    rng = np.random.default_rng(12)
+    texts = [_text_prompt(rng, n) for n in (41, 160, 330, 500, 90, 220, 410, 64)]
+    tokenize = _tokenize(vocab)
+
+    def stages():
+        return StageManager([
+            EngineTextStage(e, tokenize, _detokenize, name=e.spec.name,
+                            cost_per_token=PIPE_COSTS[i], stage_index=i,
+                            spec_topk=0 if i == len(engines) - 1 else 64)
+            for i, e in enumerate(engines)])
+
+    predictor = MLPQualityPredictor(n_stages=3, seed=10)
+    base = dict(max_new_tokens=MAX_NEW, prior_quality=PIPE_PRIORS)
+    walk_cfg = dict(quality_floor=1.5, min_draft_quality_for_verify=0.0, direct_entry=False,
+                    allow_tier_skip=False, enable_caching=False, **base)
+    lanes = dict(max_batch=SCHED_LANES, max_context=SCHED_CONTEXT, scan_steps=SCHED_SCAN)
+    rows, jobs_failed = [], []
+
+    def check(kind, pipe, req, res, secs):
+        rows.append(_pipeline_row(kind, pipe, req, res, secs, vocab, None))
+        return rows[-1]
+
+    def drained(pipe):
+        for sc in pipe.schedulers:
+            st = sc.stats()
+            if st["occupied"] or st["queued"] or st["resume_queued"]:
+                fail(f"scheduled_pipeline: a tier's lanes did not drain: {st}")
+
+    # The launch counts of this path are the scheduled plane's alone: zeroed
+    # before each scheduled pipeline is built, read after it has shut down, and
+    # summed; the fused plane's runs in between are not counted.
+    launches = dict.fromkeys(_KERNELS, 0)
+
+    def count_scheduled():
+        for k, n in read_counters().items():
+            launches[k] += n
+
+    zero_counters()
+    # -- default config: eight concurrent submits, one streamed request, a cache hit
+    pipe = ScheduledCascadePipeline(stages(), predictor, PipelineConfig(), **lanes)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [RequestContext(prompt=t, max_tokens=MAX_NEW, request_id=f"smoke_sp_{i}")
+                for i, t in enumerate(texts)]
+        jobs = [pipe.submit(r) for r in reqs]
+        for j in jobs:
+            if not j.wait(600) or j.result is None:
+                fail(f"scheduled_pipeline: job {j.request.request_id} did not resolve")
+            if j.error is not None:
+                jobs_failed.append(j.error)
+        secs = time.perf_counter() - t0
+        for r, j in zip(reqs, jobs):
+            check("concurrent", pipe, r, j.result, secs)
+        n_out = sum(sr.output.num_generated_tokens for j in jobs for sr in j.result.stage_results)
+        # the same request again: its entry tier answers from the response cache
+        # (the running acceptance statistics have moved since, so the replay
+        # may stop at another tier than the first run did)
+        time.sleep(0.2)   # prefetch lanes of the batch retire
+        done = [sc.stats()["completed"] for sc in pipe.schedulers]
+        again, secs = _call(pipe.process_request, RequestContext(
+            prompt=texts[1], max_tokens=MAX_NEW, request_id="smoke_sp_1"), timeout=600)
+        hit = check("cache_hit", pipe, reqs[1], again, secs)
+        first = jobs[1].result
+        lanes_used = [sc.stats()["completed"] - d for sc, d in zip(pipe.schedulers, done)]
+        entry = hit["stages"][0]
+        if (pipe._stats["cache_hits"] < 1 or lanes_used[entry] != 0 or entry != first.stage_results[
+                0].stage_index or again.stage_results[0].output.text != first.stage_results[
+                0].output.text):
+            fail(f"scheduled_pipeline: the repeated request was not served from the cache: "
+                 f"{hit}, lanes used {lanes_used}")
+        # one streamed request rides its routed tier's lanes
+        t0 = time.perf_counter()
+        chunks = list(pipe.stream_request(RequestContext(prompt=texts[4], max_tokens=MAX_NEW,
+                                                         request_id="smoke_sp_stream")))
+        meta, text = chunks[-1], "".join(chunks[:-1])
+        if not isinstance(meta, dict) or len(text.split()) != MAX_NEW:
+            fail(f"scheduled_pipeline: the stream gave {len(text.split())} tokens, meta {meta}")
+        stream_row = {"stage": meta["final_stage"], "chunks": meta["chunks"],
+                      "seconds": time.perf_counter() - t0}
+        time.sleep(0.2)   # let a last prefetch lane retire before the drain check
+        drained(pipe)
+        stats = pipe.get_stats()
+    finally:
+        pipe.shutdown()
+    count_scheduled()
+    emit({"phase": "scheduled_pipeline", "kind": "concurrent_summary", "requests": len(jobs),
+          "seconds": rows[len(jobs) - 1]["seconds"], "generated_tokens": n_out,
+          "tokens_per_s": n_out / rows[len(jobs) - 1]["seconds"], "stream": stream_row,
+          "stage_counts": stats["stage_counts"], "prefetches": stats.get("prefetches", 0),
+          "prefetch_suppressed": stats.get("prefetch_suppressed", 0),
+          "cache_hits": pipe._stats["cache_hits"],
+          "prefix_cache": [e.prefix_cache.stats() for e in engines],
+          "schedulers": [{k: sc[k] for k in ("completed", "steps", "preemptions", "graph_buckets")}
+                         | {"dispatch_n": {k: v["n"] for k, v in sc["dispatch"].items()}}
+                         for sc in stats["schedulers"]], "launches": dict(launches)})
+
+    # -- a forced walk and two default requests, one after another, through the
+    # scheduled plane and through the fused plane over the SAME engines
+    compare = []
+    # (the forced walk prefetches always: tier 1's prefix cache is warmed while
+    # tier 0 decodes, tier 2's when tier 1 is entered; the fused plane has no
+    # prefetch, and a prefetch changes no output)
+    always = dict(enable_prefetch=True, prefetch_threshold=1.1, chain_prefetch_threshold=1.1)
+    for kind, cfg, idxs in (("forced_walk", {**walk_cfg, **always}, (3,)),
+                            ("default", base, (0, 2))):
+        cfg = dict(cfg, enable_caching=False)
+        planes = {}
+        for plane in ("scheduled", "fused"):
+            if plane == "scheduled":
+                zero_counters()
+                pipe = ScheduledCascadePipeline(stages(), predictor, PipelineConfig(**cfg), **lanes)
+            else:
+                pipe = AdaptiveCascadePipeline(stages(), predictor, PipelineConfig(**cfg))
+            try:
+                planes[plane] = []
+                for i in idxs:
+                    req = RequestContext(prompt=texts[i], max_tokens=MAX_NEW,
+                                         request_id=f"smoke_sp_{kind}_{i}")
+                    res, secs = _call(pipe.process_request, req,
+                                      **({"timeout": 600} if plane == "scheduled" else {}))
+                    row = check(f"{kind}_{plane}", pipe, req, res, secs)
+                    planes[plane].append((row, res))
+                if kind == "forced_walk" and plane == "scheduled":
+                    time.sleep(0.2)
+                    drained(pipe)
+                    if pipe.get_stats().get("prefetches", 0) < 2:
+                        fail(f"scheduled_pipeline: the forced walk prefetched "
+                             f"{pipe.get_stats().get('prefetches', 0)} times, not twice")
+            finally:
+                pipe.shutdown()
+            if plane == "scheduled":
+                count_scheduled()
+        for (srow, sres), (frow, fres) in zip(planes["scheduled"], planes["fused"]):
+            tokens_equal = [a.output.token_ids.tolist() == b.output.token_ids.tolist()
+                            for a, b in zip(sres.stage_results, fres.stage_results)]
+            compare.append({"kind": kind, "request_id": srow["request_id"],
+                            "stages_scheduled": srow["stages"], "stages_fused": frow["stages"],
+                            "tokens_equal_by_stage": tokens_equal,
+                            "how_scheduled": [c["how"] for c in srow["calls"]],
+                            "how_fused": [c["how"] for c in frow["calls"]]})
+            if kind == "forced_walk" and srow["stages"] != [0, 1, 2]:
+                fail(f"scheduled_pipeline: forced walk visited {srow['stages']}, not every tier")
+            if srow["stages"] != frow["stages"] or not all(tokens_equal):
+                fail(f"scheduled_pipeline: the scheduled plane differs from the fused plane over "
+                     f"the same engines: {compare[-1]}")
+    emit({"phase": "scheduled_pipeline", "kind": "against_fused", "rows": compare,
+          "launches": launches, "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    if jobs_failed:
+        fail(f"scheduled_pipeline: jobs failed: {jobs_failed}")
+    errors = _error_metrics()
+    if errors:
+        fail(f"scheduled_pipeline: a stage or a request failed: {errors}")
+    _require_launches("scheduled_pipeline", launches,
+                      ("w8a8_matmul", "int4_matmul_grouped", "paged_decode", "paged_window"))
+    return launches
 
 
 def _pipeline_row(kind, pipe, req, res, secs, vocab, inline_head) -> dict:
@@ -845,6 +1332,210 @@ def _pipeline_row(kind, pipe, req, res, secs, vocab, inline_head) -> dict:
     return row
 
 
+def _grant(n_tokens: int) -> int:
+    """Pages the scheduler grants a request of ``n_tokens`` at admission."""
+    return (n_tokens + PAGE) // PAGE + 1
+
+
+def _scan_profile(engine) -> dict:
+    """One 8-lane decode scan of SCHED_SCAN steps on ``engine``: its time on
+    the card (CUDA events), the device's busy time by kernel (torch.profiler),
+    and the count of host syncs inside it (none: the scan's handles are
+    fetched after the last step is enqueued)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    B, dev = SCHED_LANES, engine.device
+    pos = [n + SCHED_MAX_NEW // 2 for n in SCHED_PROMPT_LENS[:B]]
+    rids = [f"smoke_scan_{b}" for b in range(B)]
+    tables = np.asarray([engine.allocator.alloc(r, SCHED_CONTEXT // PAGE) for r in rids], np.int32)
+    try:
+        carry = engine.scan_carry_init([1] * B, pos, [10 * SCHED_SCAN] * B, [0.0] * B, [1.0] * B,
+                                       seed=0)
+        tdev = engine.tables_to_device(tables)
+
+        def scan():
+            nonlocal carry
+            handles, carry = engine.decode_sample_scan_carry_async(carry, tdev, n_steps=SCHED_SCAN)
+            return handles
+
+        scan()
+        torch.cuda.synchronize()
+        zero_counters()
+        scan()
+        torch.cuda.synchronize()
+        launches = read_counters()
+        reps = 3
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            scan()
+        enqueue_s = (time.perf_counter() - t0) / reps
+        end.record()
+        end.synchronize()
+        scan_ms = start.elapsed_time(end) / reps
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            handles = scan()
+            torch.cuda.synchronize()
+        engine.fetch_scan_handles(handles)
+    finally:
+        for r in rids:
+            engine.allocator.free_request(r)
+    events = list(prof.key_averages())
+    kernels = sorted(((ev.key, ev.self_device_time_total / 1e3) for ev in events
+                      if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0),
+                     key=lambda kv: -kv[1])
+    # device->host copies and stream synchronisations inside the profiled scan
+    # (the one synchronize() after it is the profile's own)
+    syncs = {ev.key: ev.count for ev in events
+             if any(w in ev.key for w in ("Memcpy DtoH", "cudaStreamSynchronize", "aten::item",
+                                          "aten::_local_scalar_dense"))}
+    busy = sum(ms for _, ms in kernels) if kernels else None
+    return {"lanes": B, "steps": SCHED_SCAN, "positions": pos, "launches": launches,
+            "scan_ms": scan_ms, "step_ms": scan_ms / SCHED_SCAN, "enqueue_ms": enqueue_s * 1e3,
+            "device_busy_ms": busy,
+            "idle_share": None if busy is None else max(0.0, 1.0 - busy / scan_ms),
+            "host_syncs_in_scan": syncs,
+            "kernel_ms": {name: sum(ms for k, ms in kernels if name in k)
+                          for name in ("w8a8_stream", "w8a8_mma", "quant_rows", "w8a8_reduce",
+                                       "paged_decode")},
+            "top_kernels_ms": [[k[:90], ms] for k, ms in kernels[:8]]}
+
+
+def _sched_waves(engine, prompts, mode: str, drafts=None) -> tuple:
+    """Twelve requests through a scheduler thread over ``engine`` in two
+    waves: eight, then four once the first have decoded a few scans, so that
+    admission joins a running batch. Returns (requests, stats, seconds)."""
+    sched = ContinuousBatchingScheduler(engine, max_batch=SCHED_LANES, max_context=SCHED_CONTEXT,
+                                        scan_steps=SCHED_SCAN, preemption_mode=mode)
+    drafts = drafts or [None] * len(prompts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sched.start()
+    try:
+        reqs = [sched.submit(p, max_new=SCHED_MAX_NEW, draft=d, request_id=f"smoke_sched_{i}")
+                for i, (p, d) in enumerate(zip(prompts[:SCHED_LANES], drafts))]
+        deadline = time.monotonic() + 300
+        while sched.steps < 3 and not all(r.done for r in reqs) and time.monotonic() < deadline:
+            time.sleep(0.002)
+        joined_at = sched.steps
+        reqs += [sched.submit(p, max_new=SCHED_MAX_NEW, draft=d,
+                              request_id=f"smoke_sched_{SCHED_LANES + i}")
+                 for i, (p, d) in enumerate(zip(prompts[SCHED_LANES:], drafts[SCHED_LANES:]))]
+        deadline = time.monotonic() + 300
+        while not all(r.done for r in reqs):
+            if time.monotonic() > deadline or not sched._thread.is_alive():
+                fail(f"scheduler {mode}: {sum(not r.done for r in reqs)} requests did not "
+                     f"finish (scheduler thread alive: {sched._thread.is_alive()})")
+            time.sleep(0.005)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        stats = sched.stats()
+    finally:
+        sched.stop()
+    for r in reqs:
+        if r.error is not None or len(r.out_tokens) != SCHED_MAX_NEW:
+            fail(f"scheduler {mode}: request {r.request_id}: error={r.error}, "
+                 f"{len(r.out_tokens)} tokens")
+        if (not np.isfinite(r.out_logprobs).all() or min(r.out_tokens) < 0
+                or max(r.out_tokens) >= engine.spec.vocab_size):
+            fail(f"scheduler {mode}: request {r.request_id}: bad tokens or logprobs")
+    if engine.allocator.stats().active_requests != engine.prefix_cache.stats()["entries"]:
+        fail(f"scheduler {mode}: pages leaked")
+    stats["joined_at_step"] = joined_at
+    return reqs, stats, secs
+
+
+def _sched_row(label, reqs, stats, secs) -> dict:
+    n = sum(len(r.out_tokens) for r in reqs)
+    return {"run": label, "requests": len(reqs), "tokens": n, "seconds": secs,
+            "tokens_per_s": n / secs, "steps": stats["steps"],
+            "joined_at_step": stats["joined_at_step"], "preemptions": stats["preemptions"],
+            "swap_preemptions": stats["swap_preemptions"],
+            "preempted_requests": [r.request_id for r in reqs if r.preemptions],
+            "dispatch": {k: {"n": v["n"], "mean_ms": v["mean_ms"], "max_s": v["max_s"]}
+                         for k, v in stats["dispatch"].items()},
+            "carry": stats["carry"], "graph_buckets": stats["graph_buckets"]}
+
+
+def phase_scheduler(dev, tier0) -> tuple:
+    """ContinuousBatchingScheduler over a W8A8 engine on the 7B tier's INT8
+    weights at full width and depth. Returns (launch counts of the main
+    path's run, the bf16 W8A8 engine for the scheduled pipeline)."""
+    spec = tier0.spec
+    rng = np.random.default_rng(8)
+    prompts = [[int(t) for t in rng.integers(1, spec.vocab_size, n)] for n in SCHED_PROMPT_LENS]
+    first_wave = sum(_grant(n) for n in SCHED_PROMPT_LENS[:SCHED_LANES])
+    grows = [(n + SCHED_MAX_NEW + 1) // PAGE + 1 > _grant(n) for n in SCHED_PROMPT_LENS]
+    if not any(grows[:SCHED_LANES]):
+        fail("scheduler: no first-wave request outgrows its admission grant")
+    kw = dict(page_size=PAGE, device=dev, enable_prefix_cache=True, act_quant=True)
+
+    dtype = tier0.params["embed"].dtype
+    engine = TierEngine(spec, tier0.params, n_pages=N_PAGES, **kw)
+    tight = TierEngine(spec, tier0.params, n_pages=first_wave + 1, **kw)
+    sched = ContinuousBatchingScheduler(engine, max_batch=SCHED_LANES,
+                                        max_context=SCHED_CONTEXT, scan_steps=SCHED_SCAN)
+    report, secs = _call(sched.warmup, max_prompt=512, drafts=False)
+    emit({"phase": "scheduler_warmup", "seconds": secs, **report,
+          "buckets": sorted(" ".join(map(str, k)) for k in sched._warm_buckets)})
+    # the main path: unpressured, two waves
+    zero_counters()
+    base, stats, secs = _sched_waves(engine, prompts, "recompute")
+    launches = read_counters()
+    rows = [_sched_row("unpressured", base, stats, secs)]
+    want = [r.out_tokens for r in base]
+    # A swap restore is bit-exact, a recompute re-prefills the victim over the
+    # same INT8 pages, and the W8A8 lanes do not depend on their batch-mates
+    # (integer sums): a preempted run must equal the unpressured run, in the
+    # serving type.
+    differs = []
+    for mode in ("recompute", "swap"):
+        reqs, stats, secs = _sched_waves(tight, prompts, mode)
+        rows.append(_sched_row(f"{mode}, {tight.allocator.n_pages} pages", reqs, stats, secs))
+        if stats["preemptions"] < 1 or (mode == "swap" and stats["swap_preemptions"] < 1):
+            fail(f"scheduler {mode}: a pool of {tight.allocator.n_pages} pages preempted nothing")
+        rows[-1]["equal_to_unpressured"] = [r.out_tokens == w for r, w in zip(reqs, want)]
+        rows[-1]["first_difference_at"] = [
+            next((i for i, (a, b) in enumerate(zip(r.out_tokens, w)) if a != b), None)
+            for r, w in zip(reqs, want)]
+        if not all(rows[-1]["equal_to_unpressured"]):
+            differs.append(mode)
+    # every output resubmitted as a draft of its own prompt
+    ver, stats, secs = _sched_waves(engine, prompts, "recompute", drafts=want)
+    rows.append(_sched_row("self_verify", ver, stats, secs))
+    rows[-1]["n_accepted"] = [r.n_accepted for r in ver]
+    rows[-1]["of"] = SCHED_MAX_NEW
+    rows[-1]["tokens_unchanged"] = [r.out_tokens == w for r, w in zip(ver, want)]
+    scan = _scan_profile(engine)
+    emit({"phase": "scheduler", "tier": spec.name, "layers": spec.n_layers,
+          "weights": "int8, act_quant (W8A8)", "activations": str(dtype),
+          "lanes": SCHED_LANES, "scan_steps": SCHED_SCAN, "max_new": SCHED_MAX_NEW,
+          "prompt_lens": list(SCHED_PROMPT_LENS), "outgrows_grant": grows,
+          "runs": rows, "launches": launches, "scan": scan,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    if differs:
+        fail(f"scheduler ({dtype}): the {' and '.join(differs)}-preempted run differs from the "
+             f"unpressured run: first differences "
+             f"{[r['first_difference_at'] for r in rows[1:3]]}")
+    if scan["host_syncs_in_scan"]:
+        fail(f"scheduler: host syncs inside the scan: {scan['host_syncs_in_scan']}")
+    del tight
+    gc.collect()
+    torch.cuda.empty_cache()
+    errors = _error_metrics()
+    if errors:
+        fail(f"scheduler: errors were counted: {errors}")
+    _require_launches("scheduler", launches, ("w8a8_matmul", "paged_decode", "paged_window"))
+    return launches, engine
+
+
+def _error_metrics() -> list:
+    return [ln for ln in global_metrics().export_metrics("prometheus").splitlines()
+            if "errors_total" in ln and not ln.startswith("#") and float(ln.split()[-1]) > 0]
+
+
 def phase_step(engines) -> None:
     """One decode step of each tier at the serve phase's batch and final
     context lengths: its kernel launches, its time on the card (CUDA events),
@@ -867,7 +1558,7 @@ def phase_step(engines) -> None:
             positions = torch.tensor(pos, dtype=torch.int32, device=dev)
 
             def step():
-                decode_step(e.params, e.spec, tokens, positions, e.cache, tables)
+                decode_step(e.params, e.spec, tokens, positions, e.cache, tables, **e._fwd_kw)
 
             step()
             torch.cuda.synchronize()
@@ -899,8 +1590,10 @@ def phase_step(engines) -> None:
                          key=lambda kv: -kv[1])
         busy = sum(ms for _, ms in kernels) if kernels else None
         by_kernel = {name: sum(ms for k, ms in kernels if name in k)
-                     for name in ("int8_matmul", "int4_matmul", "splitk_reduce", "paged_decode")}
-        weights = f"int{e.params['layers'][0]['qkv_proj'].bits}"
+                     for name in ("int8_matmul", "int4_matmul", "splitk_reduce", "w8a8_stream",
+                                  "quant_rows", "w8a8_reduce", "paged_decode")}
+        weights = f"int{e.params['layers'][0]['qkv_proj'].bits}" + (
+            " act_quant" if e.act_quant else "")
         emit({"phase": "step", "tier": e.spec.name, "weights": weights,
               "activations": str(e.params["embed"].dtype), "batch": B, "positions": pos,
               "launches": launches, "step_ms": step_ms, "device_busy_ms": busy,
@@ -913,6 +1606,24 @@ def phase_path_shapes(dev) -> None:
     """Each matmul kernel against its plain version at every distinct shape
     the paths launched it at (collected by the wrappers' counters)."""
     g = torch.Generator(device=dev).manual_seed(9)
+    # W8A8: bit for bit, in f32 and in bf16 (both round an equal f32 once)
+    shapes = sorted(MQ.w8a8_matmul_counter.shapes, key=str)
+    MQ.w8a8_matmul_counter.shapes = None
+    for M, K, N, _, dtype in shapes:
+        q = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+        scale = (1.0 + 0.1 * torch.rand(N, generator=g, device=dev)) / (64 * math.sqrt(K))
+        x = torch.randn(M, K, generator=g, device=dev).to(dtype)
+        out = MQ.int8x8_matmul_cuda(x, q, scale)
+        ref = MQ.quantized_matmul_w8a8_ref(x, q, scale)
+        if not torch.equal(out, ref):
+            fail(f"w8a8_matmul M={M} K={K} N={N} {dtype}: kernel differs from its plain version "
+                 f"on the path's shape (max abs err {float((out.float() - ref.float()).abs().max())})")
+        del q, x, out, ref
+    torch.cuda.empty_cache()
+    emit({"phase": "path_shapes", "kernel": "w8a8_matmul", "shapes": len(shapes),
+          "M": sorted({sh[0] for sh in shapes}), "max_abs_err": 0.0, "tol": "equal"})
+    if not shapes:
+        fail("w8a8_matmul: the paths launched it at no shape")
     for kernel in ("int8_matmul", "int4_matmul_grouped", "int4_matmul_per_channel"):
         shapes = sorted(_KERNELS[kernel]["counter"].shapes, key=str)
         _KERNELS[kernel]["counter"].shapes = None
@@ -954,26 +1665,29 @@ def main() -> int:
     rates = card_rates(name)
     emit({"phase": "device", "name": name, "nvidia_smi": smi_line, "torch": torch.__version__,
           "cuda": torch.version.cuda, "mem_bytes_per_s": rates[0],
-          "flops": {str(k): v for k, v in rates[1].items()}})
+          "ops": {str(k): v for k, v in rates[1].items()}})
 
     phase_build()
     kernel_rows = phase_kernels(dev, rates, Timer(dev))
     phase_reference(dev)
-    for k in ("int8_matmul", "int4_matmul_grouped", "int4_matmul_per_channel"):
+    phase_reference_sched(dev)
+    for k in ("w8a8_matmul", "int8_matmul", "int4_matmul_grouped", "int4_matmul_per_channel"):
         _KERNELS[k]["counter"].shapes = set()
     paths = {}
     paths["serve"], engines = phase_serve(dev)
     phase_step(engines)
     tier0 = engines[0]
-    del engines  # frees the 14B INT8 tier before the INT4 tiers are built
+    del engines  # frees the 14B INT8 tier before the next engines are built
     gc.collect()
     torch.cuda.empty_cache()
+    paths["scheduler"], tier0_w8a8 = phase_scheduler(dev, tier0)
     paths["per_channel"] = phase_per_channel(dev)
     gc.collect()
     torch.cuda.empty_cache()
     paths["pipeline"], int4_engines = phase_pipeline(dev, tier0)
-    phase_step(int4_engines)
-    del int4_engines, tier0
+    paths["scheduled_pipeline"] = phase_scheduled_pipeline(dev, tier0_w8a8, int4_engines)
+    phase_step([*int4_engines, tier0_w8a8])
+    del tier0, tier0_w8a8, int4_engines
     gc.collect()
     torch.cuda.empty_cache()
     phase_path_shapes(dev)
@@ -992,6 +1706,13 @@ def main() -> int:
             "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"],
             "library_ms": _agg(rows, "library_ms"), "shapes": len(rows),
         })
+        with_lib = [r for r in rows if r["library_ms"] is not None]
+        if with_lib and len(with_lib) < len(rows):
+            # the library call takes only some of the shapes (torch._int_mm
+            # refuses M <= 16): its time, and the kernel's at the same shapes
+            summary[-1].update(library_ms=_agg(with_lib, "library_ms"),
+                               library_shapes=len(with_lib),
+                               ms_at_library_shapes=_agg(with_lib, "kernel_ms"))
         if summary[-1]["launches"] <= 0:
             fail(f"kernel {k} was launched on no path")
     print(smi_line, flush=True)

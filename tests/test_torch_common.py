@@ -153,3 +153,17 @@ def same_result(j, t):
     assert t.decision.rationale == j.decision.rationale
 
 
+def tiny_weights(seed=0, spec=JTINY):
+    """Random fused INT8 weights at TINY size: (JAX params, the same bytes as
+    the port's params on the CPU)."""
+    jp = jq.init_params_quantized(spec, jax.random.key(seed), dtype=jnp.float32)
+    return jp, params_from_jax(_to_numpy(jp), device="cpu")
+
+
+def engine_pair(weights, *, n_pages=64, page=16, **kw):
+    """A JAX TierEngine (plain reference path) and the port's, on the CPU,
+    over the same weights and the same cache geometry."""
+    jp, tp = weights
+    je = JEngine(JTINY, jp, use_pallas=False, page_size=page, n_pages=n_pages, **kw)
+    te = TierEngine(TINY, tp, device="cpu", page_size=page, n_pages=n_pages, **kw)
+    return je, te

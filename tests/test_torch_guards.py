@@ -29,7 +29,9 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "adaptive_sd_tpu"
              or m.startswith("adaptive_sd_tpu."))
-print(len(names), bad)
+missing = sorted({"adaptive_sd_tpu_torch.engine.scheduler", "adaptive_sd_tpu_torch.cascade.scheduled",
+                  "adaptive_sd_tpu_torch.serve.__main__"} - set(names))
+print(len(names), bad + missing)
 """
 
 _IMPORT_SMOKE = r"""
@@ -48,7 +50,7 @@ def test_port_and_chip_smoke_import_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 38
+    assert int(n_modules) >= 40
     assert bad.strip() == "[]"
 
 
@@ -84,6 +86,39 @@ def test_int4_off_cpu_has_no_plain_version_branch(monkeypatch, grouped):
         MQ.quantized_matmul(x, q, scale, bits=4)
     with pytest.raises(RuntimeError, match="failed to launch"):
         MQ.quantized_matmul(torch.empty(600, 256, device="meta"), q, scale, bits=4)  # prefill M
+
+
+def test_w8a8_off_cpu_has_no_plain_version_branch(monkeypatch):
+    """``quantized_matmul_w8a8`` and ``linear_q(act_quant=True)`` at every M:
+    a tensor that is not on the CPU goes to the CUDA wrapper and nowhere else
+    (no large-M exit to a library matmul, no plain version)."""
+    from adaptive_sd_tpu_torch.ops import matmul_q as MQ
+    from adaptive_sd_tpu_torch.ops.quant import QuantizedTensor
+
+    def boom(*a, **k):
+        raise RuntimeError("w8a8 kernel failed to launch")
+
+    def never(*a, **k):
+        raise AssertionError("a plain or library version was reached off the CPU")
+
+    monkeypatch.setattr(MQ, "int8x8_matmul_cuda", boom)
+    for name in ("quantized_matmul_w8a8_ref", "quantized_matmul_ref", "_matmul_dequant",
+                 "int8_matmul_cuda", "quantize_rows_int8"):
+        monkeypatch.setattr(MQ, name, never)
+    q = torch.empty(256, 64, dtype=torch.int8, device="meta")
+    scale = torch.empty((64,), device="meta")
+    t = QuantizedTensor(q=q, scale=scale, bits=8)
+    for M in (1, 8, 600, 4096):
+        x = torch.empty(M, 256, device="meta")
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            MQ.quantized_matmul_w8a8(x, q, scale)
+        with pytest.raises(RuntimeError, match="failed to launch"):
+            MQ.linear_q(x.reshape(1, M, 256), t, act_quant=True)
+    # the wrapper itself refuses CPU tensors instead of computing them some other way
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="CUDA"):
+        MQ.int8x8_matmul_cuda(torch.zeros(2, 16), torch.zeros(16, 8, dtype=torch.int8),
+                              torch.ones(8))
 
 
 def _no_cuda(monkeypatch):

@@ -142,3 +142,89 @@ class TestSpeculativeAccept:
             torch.arange(V, dtype=torch.int32).expand(B, D, V), logp.exp().expand(B, D, V),
             logp.expand(B, D + 1, V), lens)
         np.testing.assert_array_equal(n_acc.numpy(), lens.numpy())
+
+
+class TestRowVariants:
+    """The per-row (lane) variants the continuous-batching scheduler uses."""
+
+    TEMPS = np.array([0.0, 0.7, 1.0, 1.3, 0.0], np.float32)
+    TOP_PS = np.array([1.0, 1.0, 0.8, 0.5, 0.3], np.float32)
+
+    @pytest.mark.parametrize("ndim", [2, 3])
+    @pytest.mark.parametrize("with_top_p", [False, True])
+    def test_row_adjusted_logits_match(self, ndim, with_top_p):
+        shape = (5, 64) if ndim == 2 else (5, 3, 64)
+        logits = np.random.default_rng(4).normal(size=shape).astype(np.float32)
+        jtp = jnp.asarray(self.TOP_PS) if with_top_p else None
+        ttp = torch.from_numpy(self.TOP_PS) if with_top_p else None
+        j = np.asarray(js.row_adjusted_logits(jnp.asarray(logits), jnp.asarray(self.TEMPS), jtp))
+        t = ts.row_adjusted_logits(torch.from_numpy(logits), torch.from_numpy(self.TEMPS),
+                                   ttp).numpy()
+        np.testing.assert_array_equal(np.isinf(t), np.isinf(j))
+        np.testing.assert_allclose(t[~np.isinf(t)], j[~np.isinf(j)], rtol=1e-6)
+        # greedy rows pass through unscaled and unfiltered
+        np.testing.assert_array_equal(t[0], logits[0])
+        np.testing.assert_array_equal(t[4], logits[4])
+
+    def test_sample_rows_greedy_rows_exact_and_sampled_rows_in_support(self):
+        logits = np.random.default_rng(5).normal(0, 2.0, (5, 64)).astype(np.float32)
+        j = js.sample_rows(jnp.asarray(logits), jax.random.key(0), jnp.asarray(self.TEMPS),
+                           jnp.asarray(self.TOP_PS))
+        t = ts.sample_rows(torch.from_numpy(logits), _gen(0), torch.from_numpy(self.TEMPS),
+                           torch.from_numpy(self.TOP_PS))
+        assert t.token.dtype == torch.int32
+        for row in (0, 4):  # temperature 0: argmax, log-softmax of the raw logits
+            assert int(t.token[row]) == int(j.token[row]) == int(logits[row].argmax())
+            np.testing.assert_allclose(float(t.logprob[row]), float(j.logprob[row]), rtol=1e-6)
+        adj = ts.row_adjusted_logits(torch.from_numpy(logits), torch.from_numpy(self.TEMPS),
+                                     torch.from_numpy(self.TOP_PS))
+        for row in (1, 2, 3):  # drawn from the row's own nucleus, scored under it
+            assert torch.isfinite(adj[row, int(t.token[row])])
+            want = torch.log_softmax(adj[row], -1)[int(t.token[row])]
+            np.testing.assert_allclose(float(t.logprob[row]), float(want), rtol=1e-6)
+
+    def test_tiny_top_p_row_is_greedy(self):
+        logits = np.random.default_rng(6).normal(size=(3, 32)).astype(np.float32)
+        temps = torch.tensor([1.0, 0.9, 1.5])
+        t = ts.sample_rows(torch.from_numpy(logits), _gen(1), temps, torch.full((3,), 1e-6))
+        assert t.token.tolist() == logits.argmax(-1).tolist()
+        np.testing.assert_allclose(t.logprob.numpy(), 0.0, atol=1e-6)
+
+    def test_sample_rows_distribution_per_row(self):
+        """Two rows with different temperature and top_p, 30k draws each: every
+        row follows its own adjusted distribution (JAX's, computed exactly)."""
+        V, n = 16, 30000
+        base = np.random.default_rng(7).normal(0, 1.5, V).astype(np.float32)
+        temps = np.repeat(np.array([0.7, 1.2], np.float32), n)
+        tps = np.repeat(np.array([1.0, 0.6], np.float32), n)
+        res = ts.sample_rows(torch.from_numpy(np.broadcast_to(base, (2 * n, V)).copy()), _gen(8),
+                             torch.from_numpy(temps), torch.from_numpy(tps))
+        toks = res.token.numpy()
+        for i, (T, p) in enumerate([(0.7, 1.0), (1.2, 0.6)]):
+            target = np.asarray(jax.nn.softmax(js.adjusted_logits(jnp.asarray(base), T, p)))
+            assert _tv(toks[i * n:(i + 1) * n], target, V) < TV_MAX
+
+    def test_sample_rows_with_topk_support_matches(self):
+        logits = np.random.default_rng(9).normal(size=(5, 64)).astype(np.float32)
+        _, jids, jprobs = js.sample_rows_with_topk(
+            jnp.asarray(logits), jax.random.key(1), jnp.asarray(self.TEMPS), 6,
+            jnp.asarray(self.TOP_PS))
+        res, tids, tprobs = ts.sample_rows_with_topk(
+            torch.from_numpy(logits), _gen(2), torch.from_numpy(self.TEMPS), 6,
+            torch.from_numpy(self.TOP_PS))
+        assert tids.dtype == torch.int32 and tids.shape == (5, 6)
+        np.testing.assert_allclose(tprobs.numpy(), np.asarray(jprobs), rtol=1e-5, atol=1e-7)
+        # ids agree wherever the probability is not zero (zeros tie in any order)
+        live = np.asarray(jprobs) > 0
+        np.testing.assert_array_equal(tids.numpy()[live], np.asarray(jids)[live])
+        assert ts.sample_rows_with_topk(torch.from_numpy(logits), _gen(2),
+                                        torch.from_numpy(self.TEMPS), 0)[1] is None
+
+    @pytest.mark.parametrize("length", [0, 3, 8])
+    def test_logprob_stats_match(self, length):
+        lps = -np.abs(np.random.default_rng(10).normal(1.5, 1.5, 8)).astype(np.float32)
+        j = js.logprob_stats(jnp.asarray(lps), jnp.asarray(length))
+        t = ts.logprob_stats(torch.from_numpy(lps), torch.tensor(length))
+        assert set(t) == set(j) == {"mean", "std", "min", "frac_low_conf"}
+        for k in j:
+            np.testing.assert_allclose(float(t[k]), float(j[k]), rtol=1e-6, atol=1e-7)
