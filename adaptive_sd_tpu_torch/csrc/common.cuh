@@ -31,4 +31,27 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// 16-byte asynchronous copy global -> shared; with pred false the 16 bytes
+// are zero-filled and nothing is read (src must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Opt in to more than 48 KB of dynamic shared memory, once per size.
+template <typename K>
+inline cudaError_t ensure_smem(K kernel, size_t bytes, size_t* done) {
+  if (bytes <= 48 * 1024 || bytes <= *done) return cudaSuccess;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) *done = bytes;
+  return err;
+}
+
 }  // namespace asd

@@ -10,264 +10,520 @@
 // quantized_matmul(bits=4).
 //
 // Bound on an H100:
-// * Decode (M of 1-16 rows): bytes. Every packed byte is used for 4*M flops,
-//   far below the ~295 flops/byte where the tensor cores become the limit, so
-//   the job is to stream q[K/2, N] (and the [K/gs, N] scale table) from HBM
-//   once. With half a byte per weight the unpack competes with the stream for
-//   instruction slots, so nibbles become floats without a convert: the word
-//   is XORed with 0x88888888 once (two's complement -> offset binary), a
-//   nibble is ORed into the mantissa of 2^23 and 2^23 + 8 is subtracted,
-//   which is exact.
-// * Prefill and verify windows (M in the hundreds to thousands): operations
-//   (2*M*K*N).
+// * Decode (M of 1-16 rows): bytes. Every packed byte is used for 4*M
+//   products; on the tensor cores even f32 x (three bf16 terms, below) costs
+//   3 * 2 * 16 = 96 operations a weight, 192 a packed byte, under the ~295 a
+//   byte at which the bf16 tensor cores become the limit.
+// * Prefill and verify windows (M in the hundreds to thousands): bf16
+//   tensor-core operations (2*M*K*N, three times that for f32 x).
 //
-// Design:
-// * Small M (int4_matmul_small_kernel): a block owns 128 output columns and a
-//   slice of packed rows. Sixteen threads span a 128-byte packed row with one
-//   8-byte load each; 256 threads cover 16 rows per pass and keep 8 passes
-//   (64 bytes a thread) in flight. One pass over a packed row feeds two x
-//   columns (r and r + K/2), staged in shared memory as f32. Where the
-//   N / 128 column blocks cannot fill the SMs the packed rows are split
-//   across blocks (grid.y) into an f32 workspace that a second kernel sums.
-// * Large M (int4_matmul_large_kernel): a block owns a 64 x 128 output tile
-//   held in registers (4x8 per thread; 8x8 per thread, a 128-row tile, is
-//   slower on an H100 at every window from 64 to 2304 rows) and walks the
-//   logical K rows in tiles of 32, first the low-nibble half against
-//   x[:, :K/2], then the high-nibble half against x[:, K/2:]; the x tile
-//   (transposed) and the unpacked weight tile live in shared memory as f32,
-//   and the next tile is fetched into registers while the current one is
-//   consumed. CUDA-core FMAs with f32 accumulation serve bf16 and f32 x
-//   alike; no wgmma/TMA yet.
-// * Grouped scales: each group's sub-dot is accumulated in f32 on its own and
-//   multiplied by the group's f32 scale after it; no dequantised weight in
-//   between. The group is looked up from the LOGICAL row, so a K whose half
-//   is not a multiple of gs (a group that straddles the halves), a gs that is
-//   no multiple of the tile, and ragged N and K all work: a tile that holds
-//   more than one group applies the scale row by row. Partial sums of a
-//   K split are scaled before they are written, so any split is exact.
+// Design: one kernel for every M and both scale layouts, on the tensor cores
+// (mma.sync.m16n8k16, bf16 in, f32 accumulators). The weights are the MMA's
+// A operand (16 output columns by 16 k-rows), x its B operand (16 k-rows by
+// 8 tokens), so a decode step pads its M rows to 8 (or 16), not to 16 (or 32).
+// * A warp owns CW output columns (CW / 16 weight tiles) and NT tiles of 8
+//   tokens. Decode (M <= 16): 4 warps of 64 columns and 8 or 16 tokens, the
+//   K split across blocks, registers capped so that 3-4 blocks share an SM.
+//   Windows: warps of 32 columns and 64 tokens; 64-row tiles of 4 warps for
+//   bf16 x, 128-row tiles of 8 warps for f32 x.
+// * Packed tiles of q (32 packed rows x the block's columns) and the matching
+//   x tiles (32 columns of each half) arrive through a cp.async ring in shared
+//   memory (3 stages for decode and f32 windows, 4 for bf16 windows), one
+//   __syncthreads a stage (two for f32 x, whose split is shared). Each
+//   thread's copy addresses are worked out once, not per stage: a decode
+//   stage's instructions, not its bytes, set its time.
+// * q is [K/2, N] row-major, so two consecutive k of one column are not one
+//   word. A thread reads CW / 8 bytes (one LDS) of each of its four k-rows of
+//   a k-step; bytes 2i and 2i + 1 are the columns of rows g and g + 8 of its
+//   weight tile i (g = lane / 4). The same staged bytes feed the low-nibble
+//   tiles (rows r, against x[:, r]) and then, shifted by 4, the high-nibble
+//   ones (rows K/2 + r, against x[:, K/2 + r]). q stages are XOR-swizzled by
+//   16-byte chunk and x stages padded, so the loads (ldmatrix for x) are free
+//   of bank conflicts. No second copy of the weights.
+// * Nibbles become bf16 in registers without a convert: a __byte_perm puts
+//   byte j of two k-rows into the low bytes of two 16-bit halves, one lop3
+//   masks the nibbles and XORs them with 0x4308 (the XOR with 8 turns two's
+//   complement into offset binary u = w + 8, and 0x4300 | u is the bf16
+//   128 + u), and one fma.bf16x2 subtracts 136: exact, two weights at a time.
+//   The lop3 is written out: left to the compiler, the two constants became
+//   two instructions.
+// * f32 x is split into three bf16 terms, hi = bf16(x), mid = bf16(x - hi),
+//   lo = bf16(x - hi - mid), whose sum is x exactly (3 x 8 significand bits
+//   cover f32's 24); each term times an INT4 weight is exact, so the f32
+//   result differs from a plain f32 product only in the order of its sums.
+//   A block splits each staged x tile once into three bf16 planes in shared
+//   memory; every weight tile then costs three MMAs. bf16 x takes one.
+// * The tensor cores add into their f32 accumulators with truncation, so
+//   the MMAs sum at most one stage's rows of one half (32) before the sum is
+//   folded into the result with round-to-nearest f32.
+// * Grouped scales: each group's sub-dot is accumulated in f32 on its own
+//   and multiplied by the group's f32 scale as it is folded in; no
+//   dequantised weight in between. A stage runs its low-half rows, then its
+//   high-half rows, which lie in other groups. The group is looked up from
+//   the LOGICAL row once a stage and half. Where gs and K/2 are multiples of
+//   32 every half lies in one group (GMODE 1, the models' case); else a half
+//   whose 32 rows hold a group boundary (a group that straddles the halves,
+//   a gs that is no multiple of 32) runs each 16-row k-step once per group
+//   with the other rows masked (GMODE 2).
+//   Ragged N and K are masked in the copies. Partial sums of a K split are
+//   scaled before they are written, so any split is exact; a second kernel
+//   sums the splits.
+// * One sum order per output at every M: K is split where the N / 128
+//   column blocks cannot fill the SMs, by N and K alone. Decode tiles run
+//   one split a block and a second kernel adds the splits' sums in order;
+//   window tiles run every split in turn and add the splits' sums, kept in
+//   shared memory, in the same order. Every output is a dot product of its
+//   own within an MMA, so where an output sits in a tile does not change it:
+//   an output row is computed by the same operations in either tile, bit for
+//   bit, and decode steps and verify windows of one tier agree (the tensor
+//   cores' truncating accumulation would otherwise flip near-tied greedy
+//   tokens between the two).
 // * Per-channel: one accumulator, scale[N] applied once after the reduction.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kBN = 128;  // output columns per block
-constexpr int kWarps = kThreads / 32;
-constexpr float kMagic = 8388616.0f;  // 2^23 + 8
+constexpr int kBKP = 32;                  // packed rows per stage
+constexpr int kXCols = 2 * kBKP;          // x columns a stage: 32 of each half
+constexpr int kPlaneStride = kXCols + 8;  // bf16 a token row of an x plane: 144 bytes
 
-// Nibble at bit `shift` of a word already XORed with 0x88888888 -> float in [-8, 7].
-__device__ __forceinline__ float nib_f(uint32_t wx, int shift) {
-  return __uint_as_float(((wx >> shift) & 0xFu) | 0x4B000000u) - kMagic;
+// A block of WM x WN warps; a warp owns NT tiles of 8 tokens and CW output
+// columns (CW / 16 weight tiles). Window tiles (ALL_SPLITS) keep the sum of
+// the finished K splits (`total`) in shared memory, one f32 per output,
+// [element][thread].
+template <typename T, int NT_, int CW_, int WM_, int WN_, int STAGES_, bool ALL_SPLITS_,
+          int MINB_ = 1>
+struct Tile {
+  static constexpr bool kBf16 = sizeof(T) == 2;
+  static constexpr int kMinBlocks = MINB_;  // blocks an SM the registers must allow
+  static constexpr int NT = NT_, CW = CW_, MW = CW_ / 16, WM = WM_, WN = WN_;
+  static constexpr int kStages = STAGES_;
+  static constexpr bool kAllSplits = ALL_SPLITS_;
+  static constexpr int BM = WM * NT * 8, BN = WN * CW;
+  static constexpr int kThreads = WM * WN * 32;
+  static constexpr int kWords = CW / 32;  // 32-bit words a thread reads of each k-row
+  static constexpr int kTerms = kBf16 ? 1 : 3;
+  static constexpr int kQBytes = kBKP * BN;
+  // bf16 x is staged as the B plane itself; f32 x raw, then split into planes
+  static constexpr int kXBytes = kBf16 ? BM * kPlaneStride * 2 : BM * kXCols * 4;
+  static constexpr int kStageBytes = kQBytes + kXBytes;
+  static constexpr int kPlanesBytes = kBf16 ? 0 : 3 * BM * kPlaneStride * 2;
+  static constexpr int kTotalBytes = kAllSplits ? BM * BN * 4 : 0;
+  static constexpr int kSmem = kStages * kStageBytes + kPlanesBytes + kTotalBytes;
+};
+// Decode: 4 warps of 64 columns (8-byte loads), 8 tokens (M <= 8) or 16,
+// 3 stages, registers capped so that 4 (3) blocks share an SM; a lower cap
+// spills.
+template <typename T, int NT>
+using DecodeTile = Tile<T, NT, 64, 1, 4, 3, false, NT == 1 ? 4 : 3>;
+// Windows: warps of 32 columns and 64 tokens; for bf16 x 64-row tiles of 4
+// warps (85 KB, two blocks an SM), for f32 x 128-row tiles of 8 warps, whose
+// raw and split x tiles fill 226 KB with 3 stages (one block an SM).
+template <typename T>
+using WindowTile = std::conditional_t<sizeof(T) == 2, Tile<T, 8, 32, 1, 4, 4, true>,
+                                      Tile<T, 8, 32, 2, 4, 3, true>>;
+
+// d = a * b + c on the tensor cores
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1, const float (&c)[4]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(c[0]), "f"(c[1]),
+        "f"(c[2]), "f"(c[3]));
 }
 
-// The four low (HALF == 0) or high (HALF == 1) nibbles of a word's four bytes.
-template <int HALF>
-__device__ __forceinline__ void unpack4(uint32_t w, float* f) {
-  const uint32_t wx = w ^ 0x88888888u;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) f[j] = nib_f(wx, 8 * j + 4 * HALF);
+// d = a * b + 0: the first MMA of a sum needs no cleared accumulator
+__device__ __forceinline__ void mma_bf16_zero(float (&d)[4], const uint32_t (&a)[4],
+                                              uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
 }
 
-__device__ __forceinline__ void unpack4_rt(uint32_t w, int half, float* f) {
-  const uint32_t wx = w ^ 0x88888888u;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) f[j] = nib_f(wx, 8 * j + 4 * half);
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
 }
 
-// ---------------------------------------------------------------------------
-// small M
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[4], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(s));
+}
 
-constexpr int sCols = 8;                             // columns (bytes) per thread
-constexpr int sColGroups = kBN / sCols;              // 16 threads per packed row
-constexpr int sRowsPerPass = kThreads / sColGroups;  // 16 packed rows per pass
-constexpr int sUnroll = 8;                           // passes in flight per thread
-constexpr int sKTile = sRowsPerPass * sUnroll;       // 128 packed rows per step
+// The low nibbles w, w' of the two 16-bit halves of p (two's complement)
+// -> the bf16 pair (w, w'): with u = w ^ 8 = w + 8 (offset binary),
+// (p & 0xF) ^ 0x4308 = 0x4300 | u is bf16 128 + u (one lop3), and
+// 1 * (128 + u) - 136 is exact.
+__device__ __forceinline__ uint32_t nib2_bf16(uint32_t p) {
+  uint32_t u, d;
+  // (p & 0x000F000F) ^ 0x43084308 in one lop3 (LUT (a & b) ^ c = 0x6a)
+  asm("lop3.b32 %0, %1, %2, %3, 0x6a;\n" : "=r"(u) : "r"(p), "n"(0x000F000F), "n"(0x43084308));
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(d) : "r"(u), "r"(0x3F803F80u), "r"(0xC308C308u));
+  return d;
+}
 
-// s[c] = scale[row g of the table][n0 + c], zero past N.
-__device__ __forceinline__ void load_scale8(const float* __restrict__ scale, int g, int N,
-                                            int n0, int vec, float* s) {
-  const float* p = scale + (size_t)g * N + n0;
-  if (vec) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
-    const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
-    s[0] = a.x; s[1] = a.y; s[2] = a.z; s[3] = a.w;
-    s[4] = b.x; s[5] = b.y; s[6] = b.z; s[7] = b.w;
+// The A fragment of weight tile i from the thread's four k-rows (2t,
+// 2t + 1, 2t + 8, 2t + 9 of the k-step; w[row][word], shifted so that the
+// half's nibbles are the low ones): rows g and g + 8 of the tile are the
+// thread's bytes 2i and 2i + 1. keep0 / keep1 mask the 16-bit halves of the
+// k-rows 2t, 2t + 1 / 2t + 8, 2t + 9 (rows outside the group being summed).
+template <int NW>
+__device__ __forceinline__ void a_frag(const uint32_t (&w)[4][NW], int i, uint32_t keep0,
+                                       uint32_t keep1, uint32_t (&a)[4]) {
+  const int v = i / 2, p = 2 * (i % 2);
+  const uint32_t s0 = p | ((4 + p) << 8), s1 = (p + 1) | ((5 + p) << 8);
+  a[0] = nib2_bf16(__byte_perm(w[0][v], w[1][v], s0)) & keep0;
+  a[1] = nib2_bf16(__byte_perm(w[0][v], w[1][v], s1)) & keep0;
+  a[2] = nib2_bf16(__byte_perm(w[2][v], w[3][v], s0)) & keep1;
+  a[3] = nib2_bf16(__byte_perm(w[2][v], w[3][v], s1)) & keep1;
+}
+
+template <int NW>
+__device__ __forceinline__ void lds_words(uint32_t (&w)[NW], const uint8_t* p) {
+  if constexpr (NW == 1) {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  } else if constexpr (NW == 2) {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
   } else {
-#pragma unroll
-    for (int c = 0; c < 8; ++c) s[c] = (n0 + c < N) ? p[c] : 0.f;
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
   }
 }
 
-// One half (low or high nibbles) of a step whose rows share one group:
-// sub-dot over the thread's 8 rows, then the group's scale.
-template <int BM, int HALF>
-__device__ __forceinline__ void small_half_uniform(const uint2 (&wv)[sUnroll],
-                                                   const float (&xs)[BM][sKTile], int kr,
-                                                   const float* s, float (&acc)[BM][sCols]) {
-  float t[BM][sCols];
-#pragma unroll
-  for (int m = 0; m < BM; ++m)
-#pragma unroll
-    for (int c = 0; c < sCols; ++c) t[m][c] = 0.f;
-#pragma unroll
-  for (int u = 0; u < sUnroll; ++u) {
-    float wf[sCols];
-    unpack4<HALF>(wv[u].x, wf);
-    unpack4<HALF>(wv[u].y, wf + 4);
-    const int rr = u * sRowsPerPass + kr;
-#pragma unroll
-    for (int m = 0; m < BM; ++m) {
-      const float xv = xs[m][rr];
-#pragma unroll
-      for (int c = 0; c < sCols; ++c) t[m][c] = fmaf(xv, wf[c], t[m][c]);
-    }
-  }
-#pragma unroll
-  for (int m = 0; m < BM; ++m)
-#pragma unroll
-    for (int c = 0; c < sCols; ++c) acc[m][c] = fmaf(t[m][c], s[c], acc[m][c]);
+// x = hi + mid + lo exactly, each a bf16
+__device__ __forceinline__ void split3(float x, __nv_bfloat16& h, __nv_bfloat16& m,
+                                       __nv_bfloat16& l) {
+  h = __float2bfloat16_rn(x);
+  const float r = x - __bfloat162float(h);
+  m = __float2bfloat16_rn(r);
+  l = __float2bfloat16_rn(r - __bfloat162float(m));
 }
 
-template <typename T, int BM, bool GROUPED>
-__global__ void __launch_bounds__(kThreads)
-int4_matmul_small_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
-                         const float* __restrict__ scale, T* __restrict__ out,
-                         float* __restrict__ partial, int M, int N, int K, int gs,
-                         int r_per_split, int vec) {
-  __shared__ float xlo[BM][sKTile];
-  __shared__ float xhi[BM][sKTile];
-  __shared__ float red[kWarps][BM][kBN];
+// GMODE 0: per-channel scales; 1: grouped, every 32-row half of a stage in
+// one group (gs and K/2 multiples of 32); 2: grouped, any gs.
+template <typename T, typename C, int GMODE>
+__global__ void __launch_bounds__(C::kThreads, C::kMinBlocks)
+int4_matmul_mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
+                       const float* __restrict__ scale, T* __restrict__ out,
+                       float* __restrict__ partial, int M, int N, int K, int gs,
+                       int r_per_split, int vec) {
+  constexpr bool GROUPED = GMODE != 0;
+  extern __shared__ __align__(16) uint8_t smem[];
+  constexpr int NT = C::NT, MW = C::MW, NW = C::kWords, S = C::kStages;
+  constexpr int E = 16 / sizeof(T);  // x elements a 16-byte chunk
+  constexpr int CPH = kBKP / E;      // chunks a token row of one half
+  constexpr int QCH = C::BN / 16;    // chunks a staged q row
+  __nv_bfloat16* planes =
+      reinterpret_cast<__nv_bfloat16*>(smem + S * C::kStageBytes);  // f32 x only
+  float* total = reinterpret_cast<float*>(smem + S * C::kStageBytes + C::kPlanesBytes);
 
-  const int Kh = K / 2;
   const int tid = threadIdx.x;
-  const int cg = tid % sColGroups;
-  const int kr = tid / sColGroups;
-  const int n0 = blockIdx.x * kBN + cg * sCols;
-  const int m0 = blockIdx.z * BM;
-  const int r_begin = blockIdx.y * r_per_split;
-  const int r_end = min(Kh, r_begin + r_per_split);
-
-  float acc[BM][sCols];
-#pragma unroll
-  for (int m = 0; m < BM; ++m)
-#pragma unroll
-    for (int c = 0; c < sCols; ++c) acc[m][c] = 0.f;
-
-  for (int rt = r_begin; rt < r_end; rt += sKTile) {
-    __syncthreads();  // the previous x tiles are consumed
-    for (int i = tid; i < BM * sKTile; i += kThreads) {
-      const int m = i / sKTile, rr = i % sKTile;
-      const int gm = m0 + m, r = rt + rr;
-      const bool ok = gm < M && r < r_end;
-      xlo[m][rr] = ok ? asd::to_f(x[(size_t)gm * K + r]) : 0.f;
-      xhi[m][rr] = ok ? asd::to_f(x[(size_t)gm * K + Kh + r]) : 0.f;
-    }
-
-    uint2 wv[sUnroll];
-#pragma unroll
-    for (int u = 0; u < sUnroll; ++u) {
-      const int r = rt + u * sRowsPerPass + kr;
-      wv[u] = make_uint2(0u, 0u);  // a zero byte is two zero weights
-      if (r < r_end && n0 < N) {
-        const uint8_t* row = q + (size_t)r * N + n0;
-        if (vec) {
-          wv[u] = __ldg(reinterpret_cast<const uint2*>(row));
-        } else {
-          uint8_t* wb = reinterpret_cast<uint8_t*>(&wv[u]);
-#pragma unroll
-          for (int c = 0; c < sCols; ++c) wb[c] = (n0 + c < N) ? row[c] : (uint8_t)0;
-        }
-      }
-    }
-    __syncthreads();  // x tiles staged
-
-    if constexpr (!GROUPED) {
-#pragma unroll
-      for (int u = 0; u < sUnroll; ++u) {
-        float lo[sCols], hi[sCols];
-        unpack4<0>(wv[u].x, lo);
-        unpack4<0>(wv[u].y, lo + 4);
-        unpack4<1>(wv[u].x, hi);
-        unpack4<1>(wv[u].y, hi + 4);
-        const int rr = u * sRowsPerPass + kr;
-#pragma unroll
-        for (int m = 0; m < BM; ++m) {
-          const float xl = xlo[m][rr], xh = xhi[m][rr];
-#pragma unroll
-          for (int c = 0; c < sCols; ++c)
-            acc[m][c] = fmaf(xl, lo[c], fmaf(xh, hi[c], acc[m][c]));
-        }
-      }
-    } else {
-      const int last = min(rt + sKTile, r_end) - 1;
-      const bool uniform = (rt / gs == last / gs) && ((Kh + rt) / gs == (Kh + last) / gs);
-      if (uniform) {
-        float s[sCols];
-        if (n0 < N) {
-          load_scale8(scale, rt / gs, N, n0, vec, s);
-          small_half_uniform<BM, 0>(wv, xlo, kr, s, acc);
-          load_scale8(scale, (Kh + rt) / gs, N, n0, vec, s);
-          small_half_uniform<BM, 1>(wv, xhi, kr, s, acc);
-        }
-      } else {
-        // the step holds a group boundary: scale row by row
-#pragma unroll
-        for (int u = 0; u < sUnroll; ++u) {
-          const int rr = u * sRowsPerPass + kr;
-          const int r = rt + rr;
-          if (r >= r_end || n0 >= N) continue;
-          float s[sCols], wf[sCols];
-          load_scale8(scale, r / gs, N, n0, vec, s);
-          unpack4<0>(wv[u].x, wf);
-          unpack4<0>(wv[u].y, wf + 4);
-#pragma unroll
-          for (int m = 0; m < BM; ++m) {
-            const float xv = xlo[m][rr];
-#pragma unroll
-            for (int c = 0; c < sCols; ++c) acc[m][c] = fmaf(xv * wf[c], s[c], acc[m][c]);
-          }
-          load_scale8(scale, (Kh + r) / gs, N, n0, vec, s);
-          unpack4<1>(wv[u].x, wf);
-          unpack4<1>(wv[u].y, wf + 4);
-#pragma unroll
-          for (int m = 0; m < BM; ++m) {
-            const float xv = xhi[m][rr];
-#pragma unroll
-            for (int c = 0; c < sCols; ++c) acc[m][c] = fmaf(xv * wf[c], s[c], acc[m][c]);
-          }
-        }
-      }
-    }
-  }
-
-  // Reduce over packed rows: the two rows that share a warp (lanes differing
-  // in bit 4 hold the same columns), then the 8 warps through shared memory.
-#pragma unroll
-  for (int m = 0; m < BM; ++m)
-#pragma unroll
-    for (int c = 0; c < sCols; ++c)
-      acc[m][c] += __shfl_xor_sync(0xffffffffu, acc[m][c], 16);
   const int warp = tid / 32, lane = tid % 32;
-  if (lane < sColGroups) {
+  const int g = lane / 4, tig = lane % 4;
+  const int wm = warp / C::WN, wn = warp % C::WN;
+  const int m0 = blockIdx.z * C::BM, nb = blockIdx.x * C::BN;
+  const int Kh = K / 2;
+  // Decode tiles: one K split a block (grid.y), partial sums to a workspace.
+  // Window tiles: every split in turn, each split's sum added to `total` as
+  // the split-K reduction adds the partials, so that a row's result does not
+  // depend on the tile (or M) it was computed in.
+  const int r_begin = C::kAllSplits ? 0 : blockIdx.y * r_per_split;
+  const int r_end = C::kAllSplits ? Kh : min(Kh, r_begin + r_per_split);
+  const int n_st = (r_end - r_begin + kBKP - 1) / kBKP;
+
+  // the group of a logical row: a shift where gs is a power of two
+  const int gs_shift = (gs > 0 && (gs & (gs - 1)) == 0) ? __ffs(gs) - 1 : -1;
+  auto group_of = [&](int row) { return gs_shift >= 0 ? row >> gs_shift : row / gs; };
+
+  // The thread's copies: q chunks tid + j * kThreads are one column chunk
+  // (qch) of the rows qr + j * QRP; x chunks
+  // likewise one chunk (xc) of one half (xh) of the token rows xm + j * XRP.
+  constexpr int QRP = C::kThreads / QCH, XCH = 2 * CPH, XRP = C::kThreads / XCH;
+  static_assert(C::kThreads % QCH == 0 && kBKP % QRP == 0, "q copy layout");
+  static_assert(C::kThreads % XCH == 0 && (C::BM % XRP == 0 || C::BM < XRP), "x copy layout");
+  const int qr = tid / QCH, qch = tid % QCH;
+  const int q_gn = nb + qch * 16;
+  const int xm = tid / XCH, xh = (tid / CPH) % 2, xc = tid % CPH;
+  const int x_dst = (C::kBf16 ? xm * kPlaneStride : xm * kXCols) + xh * kBKP + xc * E;
+  const T* x_src = x + (size_t)(m0 + xm) * K + xh * Kh + xc * E;
+  auto load = [&](int slot, int r0) {
+    uint8_t* Qs = smem + slot * C::kStageBytes;
+    T* Xs = reinterpret_cast<T*>(Qs + C::kQBytes);
+    if (vec) {
 #pragma unroll
-    for (int m = 0; m < BM; ++m)
+      for (int j = 0; j < kBKP / QRP; ++j) {
+        const int r = qr + j * QRP, gr = r0 + r;
+        const bool ok = gr < r_end && q_gn < N;
+        asd::cp_async16(Qs + r * C::BN + ((qch ^ (((r >> 1) & 3) << 1)) * 16),
+                        ok ? q + (size_t)gr * N + q_gn : q, ok);
+      }
+      const int r = r0 + xc * E;
 #pragma unroll
-      for (int c = 0; c < sCols; ++c) red[warp][m][lane * sCols + c] = acc[m][c];
+      for (int j = 0; j < (C::BM + XRP - 1) / XRP; ++j) {
+        if (C::BM < XRP && xm >= C::BM) break;
+        const bool ok = m0 + xm + j * XRP < M && r < r_end;
+        asd::cp_async16(Xs + x_dst + j * XRP * (C::kBf16 ? kPlaneStride : kXCols),
+                        ok ? x_src + (size_t)j * XRP * K + r0 : x, ok);
+      }
+      return;
+    }
+    for (int id = tid; id < kBKP * QCH; id += C::kThreads) {
+      const int r = id / QCH, ch = id % QCH;
+      const int gr = r0 + r, gn = nb + ch * 16;
+      uint8_t* dst = Qs + r * C::BN + ((ch ^ (((r >> 1) & 3) << 1)) * 16);
+#pragma unroll
+      for (int c = 0; c < 16; ++c)
+        dst[c] = (gr < r_end && gn + c < N) ? q[(size_t)gr * N + gn + c] : (uint8_t)0;
+    }
+    for (int id = tid; id < C::BM * XCH; id += C::kThreads) {
+      const int m = id / XCH, half = (id / CPH) % 2, c = id % CPH;
+      const int gm = m0 + m, r = r0 + c * E;
+      T* dst = Xs + (C::kBf16 ? m * kPlaneStride : m * kXCols) + half * kBKP + c * E;
+      const T* src = x + (size_t)gm * K + half * Kh + r;
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        dst[e] = (gm < M && r + e < r_end) ? src[e] : asd::from_f<T>(0.f);
+    }
+  };
+
+  // The tensor cores add into their f32 accumulators with truncation, so
+  // the MMAs sum into t, which is folded into acc with round-to-nearest f32
+  // (times the group's scale) when a half of a stage or a group ends: no MMA
+  // accumulator spans more than 32 rows.
+  float acc[MW][NT][4], t[MW][NT][4];
+#pragma unroll
+  for (int i = 0; i < MW; ++i)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) acc[i][n][f] = t[i][n][f] = 0.f;
+  if constexpr (C::kAllSplits) {
+    for (int e = 0; e < MW * NT * 4; ++e) total[e * C::kThreads + tid] = 0.f;
   }
-  __syncthreads();
-  for (int i = tid; i < BM * kBN; i += kThreads) {
-    const int m = i / kBN, c = i % kBN;
-    const int gm = m0 + m, gn = blockIdx.x * kBN + c;
-    if (gm >= M || gn >= N) continue;
-    float s = 0.f;
+
+  // the thread's output columns: rows g (rh 0) and g + 8 (rh 1) of weight
+  // tile i, its bytes 2i + rh
+  const int col0 = nb + wn * C::CW + g * (C::CW / 8);
+  auto col_of = [&](int i, int rh) { return col0 + 2 * i + rh; };
+  int cur[2] = {-1, -1};   // the group each half's rows belong to now
+  float s[2][MW][2] = {};  // its scales at the thread's columns
+  auto flush = [&](int h) {  // acc += t * scale; t = 0
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[w][m][c];
-    if (partial != nullptr) {
-      partial[((size_t)blockIdx.y * M + gm) * N + gn] = s;
-    } else {
-      out[(size_t)gm * N + gn] = asd::from_f<T>(GROUPED ? s : s * scale[gn]);
+    for (int i = 0; i < MW; ++i)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          acc[i][n][f] = GROUPED ? fmaf(t[i][n][f], s[h][i][f / 2], acc[i][n][f])
+                                 : acc[i][n][f] + t[i][n][f];
+          t[i][n][f] = 0.f;
+        }
+  };
+  auto set_group = [&](int h, int grp) {  // flush t if the group changes
+    if constexpr (GROUPED) {
+      if (grp == cur[h]) return;
+      if constexpr (GMODE == 2) flush(h);  // else t is empty: groups change at stage halves
+      cur[h] = grp;
+      const float* srow = scale + (size_t)grp * N;
+#pragma unroll
+      for (int i = 0; i < MW; ++i)
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh) {
+          const int gn = col_of(i, rh);
+          s[h][i][rh] = gn < N ? __ldg(srow + gn) : 0.f;
+        }
+    }
+  };
+  // MMAs of one half of one 16-row k-step, every term, into t (which the
+  // first MMA overwrites where `fresh`: t holds nothing yet)
+  auto mma_step = [&](int h, const uint8_t* Xs, int ks, const uint32_t (&w)[4][NW],
+                      uint32_t keep0, uint32_t keep1, bool fresh) {
+    uint32_t a[MW][4];
+#pragma unroll
+    for (int i = 0; i < MW; ++i) a_frag<NW>(w, i, keep0, keep1, a[i]);
+#pragma unroll
+    for (int p = 0; p < C::kTerms; ++p) {
+      const __nv_bfloat16* plane =
+          C::kBf16 ? reinterpret_cast<const __nv_bfloat16*>(Xs) : planes + p * C::BM * kPlaneStride;
+      uint32_t b[NT][2];
+#pragma unroll
+      for (int n = 0; n < NT; n += 2) {
+        // matrices (tile n, k 0-7), (n, k 8-15), (n + 1, k 0-7), (n + 1, k 8-15)
+        const int mi = lane / 8;
+        const int tok = (wm * NT + n + mi / 2) * 8 + lane % 8;
+        const __nv_bfloat16* src =
+            plane + tok * kPlaneStride + h * kBKP + ks * 16 + (mi % 2) * 8;
+        uint32_t r[4];
+        if (n + 1 < NT) {
+          ldmatrix_x4(r, src);
+          b[min(n + 1, NT - 1)][0] = r[2];
+          b[min(n + 1, NT - 1)][1] = r[3];
+        } else {
+          ldmatrix_x2(r, src);  // lanes 0-15 give the addresses
+        }
+        b[n][0] = r[0];
+        b[n][1] = r[1];
+      }
+#pragma unroll
+      for (int i = 0; i < MW; ++i)
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          if (fresh && p == 0)
+            mma_bf16_zero(t[i][n], a[i], b[n][0], b[n][1]);
+          else
+            mma_bf16(t[i][n], a[i], b[n][0], b[n][1], t[i][n]);
+        }
+    }
+  };
+
+#pragma unroll
+  for (int st = 0; st < S - 1; ++st) {
+    if (st < n_st) load(st, r_begin + st * kBKP);
+    asd::cp_async_commit();
+  }
+  int slot = 0;  // stage it's slot of the ring; it - 1's takes stage it + S - 1
+  for (int it = 0; it < n_st; ++it) {
+    asd::cp_async_wait<S - 2>();
+    __syncthreads();  // stage `it` landed; stage it - 1 (and the planes) are consumed
+    {
+      const int nx = it + S - 1;
+      if (nx < n_st) load(slot == 0 ? S - 1 : slot - 1, r_begin + nx * kBKP);
+      asd::cp_async_commit();
+    }
+    const uint8_t* Qs = smem + slot * C::kStageBytes;
+    slot = slot == S - 1 ? 0 : slot + 1;
+    const uint8_t* Xs = Qs + C::kQBytes;
+    if constexpr (!C::kBf16) {
+      // split the staged f32 tile into the three bf16 planes
+      const float* raw = reinterpret_cast<const float*>(Xs);
+      for (int i = tid; i < C::BM * kXCols / 4; i += C::kThreads) {
+        const int m = i / (kXCols / 4), c = (i % (kXCols / 4)) * 4;
+        const float4 v = *reinterpret_cast<const float4*>(raw + m * kXCols + c);
+        const float vs[4] = {v.x, v.y, v.z, v.w};
+        uint32_t packed[3][2] = {{0u, 0u}, {0u, 0u}, {0u, 0u}};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          __nv_bfloat16 hml[3];
+          split3(vs[e], hml[0], hml[1], hml[2]);
+#pragma unroll
+          for (int p = 0; p < 3; ++p)
+            packed[p][e / 2] |= (uint32_t)__bfloat16_as_ushort(hml[p]) << (16 * (e % 2));
+        }
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+          *reinterpret_cast<uint2*>(planes + p * C::BM * kPlaneStride + m * kPlaneStride + c) =
+              make_uint2(packed[p][0], packed[p][1]);
+      }
+      __syncthreads();
+    }
+
+    const int r0 = r_begin + it * kBKP;
+    // the thread's words of its four k-rows of both k-steps: 16-byte chunk
+    // (wn * CW + g * CW / 8) / 16 of the row, XOR (t % 4) * 2 (the swizzle of
+    // rows 2t, 2t + 1, 2t + 8 and 2t + 9), plus the offset in the chunk
+    uint32_t w[2][4][NW];
+    {
+      const int off = wn * C::CW + g * (C::CW / 8);
+      const int byte = (((off / 16) ^ (tig << 1)) * 16) + off % 16;
+#pragma unroll
+      for (int ks = 0; ks < kBKP / 16; ++ks) {
+        const int r = ks * 16 + 2 * tig;
+        lds_words<NW>(w[ks][0], Qs + r * C::BN + byte);
+        lds_words<NW>(w[ks][1], Qs + (r + 1) * C::BN + byte);
+        lds_words<NW>(w[ks][2], Qs + (r + 8) * C::BN + byte);
+        lds_words<NW>(w[ks][3], Qs + (r + 9) * C::BN + byte);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // the low nibbles' rows, then the high nibbles'
+      if (h == 1) {
+#pragma unroll
+        for (int ks = 0; ks < kBKP / 16; ++ks)
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int v = 0; v < NW; ++v) w[ks][r][v] >>= 4;
+      }
+      const int first = h * Kh + r0;  // logical row of the stage half's first row
+      const int n_rows = min(kBKP, r_end - r0);
+      if (GMODE != 2 || group_of(first) == group_of(first + n_rows - 1)) {
+        // one group: rows past r_end are zero weights
+        if constexpr (GROUPED) set_group(h, group_of(first));
+#pragma unroll
+        for (int ks = 0; ks < kBKP / 16; ++ks) {
+          if (ks * 16 >= n_rows) break;
+          mma_step(h, Xs, ks, w[ks], 0xFFFFFFFFu, 0xFFFFFFFFu, ks == 0);
+        }
+      } else if constexpr (GMODE == 2) {
+        // the half holds a group boundary: each k-step once per group, the
+        // other rows masked
+#pragma unroll
+        for (int ks = 0; ks < kBKP / 16; ++ks) {
+          const int n_valid = min(16, n_rows - ks * 16);
+          if (n_valid <= 0) break;
+          const int fk = first + ks * 16;  // logical row of the k-step's first row
+          for (int lo = 0; lo < n_valid;) {
+            const int grp = group_of(fk + lo);
+            const int hi = min(n_valid, (grp + 1) * gs - fk);  // rows [lo, hi)
+            auto keep = [&](int r) { return (r >= lo && r < hi) ? 0xFFFFu : 0u; };
+            const int r = 2 * tig;
+            set_group(h, grp);
+            mma_step(h, Xs, ks, w[ks], keep(r) | (keep(r + 1) << 16),
+                     keep(r + 8) | (keep(r + 9) << 16), false);
+            lo = hi;
+          }
+        }
+      }
+      flush(h);
+    }
+    if constexpr (C::kAllSplits) {
+      if ((r0 + kBKP) % r_per_split == 0 || it == n_st - 1) {  // a split ends
+#pragma unroll
+        for (int i = 0; i < MW; ++i)
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int f = 0; f < 4; ++f) {
+              total[((i * NT + n) * 4 + f) * C::kThreads + tid] += acc[i][n][f];
+              acc[i][n][f] = 0.f;
+            }
+      }
     }
   }
+  asd::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < MW; ++i)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int gm = m0 + (wm * NT + n) * 8 + 2 * tig + f % 2;
+        const int gn = col_of(i, f / 2);
+        if (gm >= M || gn >= N) continue;
+        const float v =
+            C::kAllSplits ? total[((i * NT + n) * 4 + f) * C::kThreads + tid] : acc[i][n][f];
+        if (partial != nullptr) {
+          partial[((size_t)blockIdx.y * M + gm) * N + gn] = v;
+        } else {
+          out[(size_t)gm * N + gn] = asd::from_f<T>(GROUPED ? v : v * scale[gn]);
+        }
+      }
 }
 
 // Sum the K splits; `scale` is the per-channel scale or null (grouped partial
@@ -284,230 +540,43 @@ __global__ void int4_splitk_reduce_kernel(const float* __restrict__ partial,
   out[i] = asd::from_f<T>(scale != nullptr ? s * scale[i % N] : s);
 }
 
-// ---------------------------------------------------------------------------
-// large M
-
-constexpr int lBK = 32;  // logical K rows per tile
-constexpr int lTM = 4;   // output rows per thread: a block owns 16 * lTM = 64 rows
-
-template <typename T, int TM, bool GROUPED>
-__global__ void __launch_bounds__(kThreads)
-int4_matmul_large_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
-                         const float* __restrict__ scale, T* __restrict__ out, int M, int N,
-                         int K, int gs, int vec) {
-  constexpr int BMT = 16 * TM;          // output rows per block
-  constexpr int XP = BMT + 4;           // padded row of the transposed x tile
-  constexpr int XPT = lBK * BMT / kThreads;  // x elements per thread per tile
-  __shared__ __align__(16) float xs[lBK][XP];   // [k][m]
-  __shared__ __align__(16) float ws[lBK][kBN];  // [k][n]
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.y * BMT, nb = blockIdx.x * kBN;
-  const int Kh = K / 2;
-  // loaders: x element i of this thread is (m = tid / 32 + 8 * i, k = tid % 32);
-  // the weights are one 16-byte run of packed row tid / 8 per thread
-  const int xk = tid % lBK, xm = tid / lBK;
-  const int wr = tid / 8, wc = (tid % 8) * 16;
-
-  float xr[XPT];
-  uint4 wq;
-  const int tiles_per_half = (Kh + lBK - 1) / lBK;
-  const int n_tiles = 2 * tiles_per_half;
-
-  auto fetch = [&](int it) {
-    const int half = it / tiles_per_half;
-    const int rt = (it % tiles_per_half) * lBK;
-    const int r = rt + xk;
-#pragma unroll
-    for (int i = 0; i < XPT; ++i) {
-      const int gm = m0 + xm + (kThreads / lBK) * i;
-      xr[i] = (gm < M && r < Kh) ? asd::to_f(x[(size_t)gm * K + half * Kh + r]) : 0.f;
-    }
-    wq = make_uint4(0u, 0u, 0u, 0u);
-    const int rw = rt + wr, n0 = nb + wc;
-    if (rw < Kh && n0 < N) {
-      const uint8_t* row = q + (size_t)rw * N + n0;
-      if (vec) {
-        wq = __ldg(reinterpret_cast<const uint4*>(row));
-      } else {
-        uint8_t* wb = reinterpret_cast<uint8_t*>(&wq);
-#pragma unroll
-        for (int c = 0; c < 16; ++c) wb[c] = (n0 + c < N) ? row[c] : (uint8_t)0;
-      }
-    }
-  };
-
-  float acc[TM][8], t[TM][8];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = t[i][j] = 0.f;
-
-  // this thread's 8 output columns: tx*4 .. +3 and 64 + tx*4 .. +3
-  auto col = [&](int j) { return nb + (j < 4 ? tx * 4 + j : 64 + tx * 4 + (j - 4)); };
-  auto load_scale = [&](int g, float* s) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int gn = col(j);
-      s[j] = gn < N ? __ldg(scale + (size_t)g * N + gn) : 0.f;
-    }
-  };
-  int cur_g = -1;
-  auto flush = [&]() {  // acc += t * scale[cur_g]; t = 0
-    if (cur_g < 0) return;
-    float s[8];
-    load_scale(cur_g, s);
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        acc[i][j] = fmaf(t[i][j], s[j], acc[i][j]);
-        t[i][j] = 0.f;
-      }
-    cur_g = -1;
-  };
-
-  fetch(0);
-  for (int it = 0; it < n_tiles; ++it) {
-    const int half = it / tiles_per_half;
-    const int rt = (it % tiles_per_half) * lBK;
-    __syncthreads();  // the previous tile is consumed
-#pragma unroll
-    for (int i = 0; i < XPT; ++i) xs[xk][xm + (kThreads / lBK) * i] = xr[i];
-    {
-      float wf[16];
-      unpack4_rt(wq.x, half, wf);
-      unpack4_rt(wq.y, half, wf + 4);
-      unpack4_rt(wq.z, half, wf + 8);
-      unpack4_rt(wq.w, half, wf + 12);
-#pragma unroll
-      for (int v = 0; v < 4; ++v)
-        *reinterpret_cast<float4*>(&ws[wr][wc + 4 * v]) =
-            make_float4(wf[4 * v], wf[4 * v + 1], wf[4 * v + 2], wf[4 * v + 3]);
-    }
-    __syncthreads();  // tile staged
-    if (it + 1 < n_tiles) fetch(it + 1);
-
-    const int rows = min(lBK, Kh - rt);
-    const int k0 = half * Kh + rt;  // logical row of the tile's first row
-    bool uniform = true;
-    if constexpr (GROUPED) {
-      const int g0 = k0 / gs, g1 = (k0 + rows - 1) / gs;
-      uniform = g0 == g1;
-      if (!uniform || g0 != cur_g) flush();
-      if (uniform) cur_g = g0;
-    }
-
-    if (uniform) {
-      // rows past `rows` are zero in both tiles
-#pragma unroll 4
-      for (int kk = 0; kk < lBK; ++kk) {
-        float a[TM], b[8];
-#pragma unroll
-        for (int v = 0; v < TM / 4; ++v)
-          *reinterpret_cast<float4*>(a + 4 * v) =
-              *reinterpret_cast<const float4*>(&xs[kk][ty * TM + 4 * v]);
-        *reinterpret_cast<float4*>(b) = *reinterpret_cast<const float4*>(&ws[kk][tx * 4]);
-        *reinterpret_cast<float4*>(b + 4) =
-            *reinterpret_cast<const float4*>(&ws[kk][64 + tx * 4]);
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            if constexpr (GROUPED) {
-              t[i][j] = fmaf(a[i], b[j], t[i][j]);
-            } else {
-              acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-            }
-          }
-      }
-    } else {
-      // the tile holds a group boundary: scale row by row
-      for (int kk = 0; kk < rows; ++kk) {
-        float a[TM], b[8], s[8];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) a[i] = xs[kk][ty * TM + i];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          b[j] = ws[kk][tx * 4 + j];
-          b[4 + j] = ws[kk][64 + tx * 4 + j];
-        }
-        load_scale((k0 + kk) / gs, s);
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i] * b[j], s[j], acc[i][j]);
-      }
-    }
-  }
-  if constexpr (GROUPED) flush();
-
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int gn = col(j);
-    if (gn >= N) continue;
-    const float s = GROUPED ? 1.f : scale[gn];
-#pragma unroll
-    for (int i = 0; i < TM; ++i) {
-      const int gm = m0 + ty * TM + i;
-      if (gm < M) out[(size_t)gm * N + gn] = asd::from_f<T>(acc[i][j] * s);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// launchers
-
-template <typename T, int BM, bool GROUPED>
-void launch_small(const void* x, const void* q, const void* scale, void* out, void* partial,
-                  int M, int N, int K, int gs, int splits, int r_per_split, int vec,
-                  cudaStream_t stream) {
-  dim3 grid((N + kBN - 1) / kBN, splits, (M + BM - 1) / BM);
-  int4_matmul_small_kernel<T, BM, GROUPED><<<grid, kThreads, 0, stream>>>(
+template <typename T, typename C, int GMODE>
+int launch(const void* x, const void* q, const void* scale, void* out, void* partial, int M,
+           int N, int K, int gs, int splits, int r_per_split, int vec, cudaStream_t stream) {
+  static size_t smem_done = 0;
+  cudaError_t err = asd::ensure_smem(int4_matmul_mma_kernel<T, C, GMODE>, C::kSmem, &smem_done);
+  if (err != cudaSuccess) return (int)err;
+  const bool split_blocks = !C::kAllSplits && splits > 1;  // else the block loops over them
+  dim3 grid((N + C::BN - 1) / C::BN, split_blocks ? splits : 1, (M + C::BM - 1) / C::BM);
+  int4_matmul_mma_kernel<T, C, GMODE><<<grid, C::kThreads, C::kSmem, stream>>>(
       static_cast<const T*>(x), static_cast<const uint8_t*>(q),
       static_cast<const float*>(scale), static_cast<T*>(out),
-      splits > 1 ? static_cast<float*>(partial) : nullptr, M, N, K, gs, r_per_split, vec);
+      split_blocks ? static_cast<float*>(partial) : nullptr, M, N, K, gs, r_per_split, vec);
+  return (int)cudaGetLastError();
 }
 
-template <typename T, int TM, bool GROUPED>
-void launch_large(const void* x, const void* q, const void* scale, void* out, int M, int N,
-                  int K, int gs, int vec, cudaStream_t stream) {
-  dim3 grid((N + kBN - 1) / kBN, (M + 16 * TM - 1) / (16 * TM));
-  int4_matmul_large_kernel<T, TM, GROUPED><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const uint8_t*>(q),
-      static_cast<const float*>(scale), static_cast<T*>(out), M, N, K, gs, vec);
-}
-
-template <typename T, bool GROUPED>
+template <typename T, int GMODE>
 int run(const void* x, const void* q, const void* scale, void* out, void* partial, int M,
         int N, int K, int gs, int splits, int r_per_split, int vec, int large,
         cudaStream_t stream) {
+  int rc;
   if (large) {
-    launch_large<T, lTM, GROUPED>(x, q, scale, out, M, N, K, gs, vec, stream);
-    return (int)cudaGetLastError();
-  }
-  if (M <= 1) {
-    launch_small<T, 1, GROUPED>(x, q, scale, out, partial, M, N, K, gs, splits, r_per_split,
-                                vec, stream);
-  } else if (M <= 2) {
-    launch_small<T, 2, GROUPED>(x, q, scale, out, partial, M, N, K, gs, splits, r_per_split,
-                                vec, stream);
-  } else if (M <= 4) {
-    launch_small<T, 4, GROUPED>(x, q, scale, out, partial, M, N, K, gs, splits, r_per_split,
-                                vec, stream);
+    rc = launch<T, WindowTile<T>, GMODE>(x, q, scale, out, partial, M, N, K, gs, splits,
+                                         r_per_split, vec, stream);
+  } else if (M <= 8) {
+    rc = launch<T, DecodeTile<T, 1>, GMODE>(x, q, scale, out, partial, M, N, K, gs, splits,
+                                            r_per_split, vec, stream);
   } else {
-    launch_small<T, 8, GROUPED>(x, q, scale, out, partial, M, N, K, gs, splits, r_per_split,
-                                vec, stream);
+    rc = launch<T, DecodeTile<T, 2>, GMODE>(x, q, scale, out, partial, M, N, K, gs, splits,
+                                            r_per_split, vec, stream);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits <= 1) return (int)err;
+  if (rc != 0 || large || splits <= 1) return rc;
   const size_t total = (size_t)M * N;
   const int threads = 256;
   int4_splitk_reduce_kernel<T>
       <<<(unsigned)((total + threads - 1) / threads), threads, 0, stream>>>(
           static_cast<const float*>(partial),
-          GROUPED ? nullptr : static_cast<const float*>(scale), static_cast<T*>(out), M, N,
+          GMODE ? nullptr : static_cast<const float*>(scale), static_cast<T*>(out), M, N,
           splits);
   return (int)cudaGetLastError();
 }
@@ -516,24 +585,30 @@ int run(const void* x, const void* q, const void* scale, void* out, void* partia
 
 // x [M, K] (bf16 if x_is_bf16 else f32); q [K/2, N] packed int4 (split-half);
 // scale f32: [N] when gs == 0 (per-channel), [K/gs, N] when gs > 0 (grouped);
-// out [M, N] in x's type. large == 0: the small-M kernel, with
-// partial [splits, M, N] f32 when splits > 1 and r_per_split packed rows per
-// split (a multiple of 128); large != 0: the large-M kernel. vec != 0:
-// N % 16 == 0 and q and scale are 16-byte aligned (vector loads).
+// out [M, N] in x's type. r_per_split packed rows per K split (a multiple
+// of 32 when splits > 1). large == 0: decode tiles (M <= 16), one split a
+// block, with partial [splits, M, N] f32 when splits > 1; large != 0:
+// 64-row (bf16) or 128-row (f32) tiles that add up the same splits in turn.
+// vec != 0: N % 16 == 0, K/2 a multiple of 16 bytes of x, and x and q
+// 16-byte aligned (16-byte asynchronous copies); else element-wise staging.
 extern "C" int asd_int4_matmul(const void* x, const void* q, const void* scale, void* out,
                                void* partial, int M, int N, int K, int gs, int splits,
                                int r_per_split, int x_is_bf16, int vec, int large,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M <= 0 || N <= 0 || K <= 0 || (K & 1) || gs < 0) return (int)cudaErrorInvalidValue;
+  if (M <= 0 || N <= 0 || K <= 0 || (K & 1) || gs < 0 || splits < 1 || r_per_split <= 0 ||
+      (splits > 1 && (r_per_split % kBKP) != 0) || (!large && M > 16))
+    return (int)cudaErrorInvalidValue;
+  // every 32-row half of a stage lies in one group where gs and K/2 are
+  // multiples of 32 (stages start at multiples of 32)
+  const int gmode = gs == 0 ? 0 : (gs % kBKP == 0 && (K / 2) % kBKP == 0) ? 1 : 2;
+#define ASD_RUN(T, G) \
+  run<T, G>(x, q, scale, out, partial, M, N, K, gs, splits, r_per_split, vec, large, s)
   if (x_is_bf16) {
-    return gs > 0 ? run<__nv_bfloat16, true>(x, q, scale, out, partial, M, N, K, gs, splits,
-                                             r_per_split, vec, large, s)
-                  : run<__nv_bfloat16, false>(x, q, scale, out, partial, M, N, K, gs, splits,
-                                              r_per_split, vec, large, s);
+    return gmode == 0   ? ASD_RUN(__nv_bfloat16, 0)
+           : gmode == 1 ? ASD_RUN(__nv_bfloat16, 1)
+                        : ASD_RUN(__nv_bfloat16, 2);
   }
-  return gs > 0 ? run<float, true>(x, q, scale, out, partial, M, N, K, gs, splits,
-                                   r_per_split, vec, large, s)
-                : run<float, false>(x, q, scale, out, partial, M, N, K, gs, splits,
-                                    r_per_split, vec, large, s);
+  return gmode == 0 ? ASD_RUN(float, 0) : gmode == 1 ? ASD_RUN(float, 1) : ASD_RUN(float, 2);
+#undef ASD_RUN
 }

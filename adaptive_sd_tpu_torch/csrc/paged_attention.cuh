@@ -189,14 +189,4 @@ __device__ void attend_rows(const T* __restrict__ q_rows, T* __restrict__ out_ro
   }
 }
 
-// Opt in to more than 48 KB of dynamic shared memory, once per size.
-template <typename K>
-inline cudaError_t ensure_smem(K kernel, size_t bytes, size_t* done) {
-  if (bytes <= 48 * 1024 || bytes <= *done) return cudaSuccess;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) *done = bytes;
-  return err;
-}
-
 }  // namespace asd

@@ -28,7 +28,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 KERNELS = {
     "int8_matmul": ("matmul_int8.cu", "asd_int8_matmul", [_P] * 5 + [_I] * 7 + [_P]),
     "int4_matmul": ("matmul_int4.cu", "asd_int4_matmul", [_P] * 5 + [_I] * 9 + [_P]),
-    "w8a8_matmul": ("matmul_w8a8.cu", "asd_w8a8_matmul", [_P] * 7 + [_I] * 9 + [_P]),
+    "w8a8_matmul": ("matmul_w8a8.cu", "asd_w8a8_matmul", [_P] * 8 + [_I] * 9 + [_P]),
     "paged_decode": ("paged_decode.cu", "asd_paged_decode", [_P] * 8 + [_I] * 7 + [_F, _I, _P]),
     "paged_window": ("paged_window.cu", "asd_paged_window", [_P] * 9 + [_I] * 8 + [_F, _I, _P]),
 }
@@ -41,15 +41,21 @@ NVCC_FLAGS = [
 
 class LaunchCounter:
     """Launch count of one kernel wrapper: ``launches`` grows by one where
-    the wrapper launches its CUDA kernel, and nowhere else. Set ``shapes`` to
-    a set to collect the distinct shapes the kernel was launched at."""
+    the wrapper launches its CUDA kernel, and nowhere else. The matmul
+    wrappers call :meth:`launched` with M first: ``windows`` counts their
+    launches at M > 16 (verify windows, prefill), the rest are decode
+    launches. Set ``shapes`` to a set to collect the distinct shapes the
+    kernel was launched at."""
 
     def __init__(self) -> None:
         self.launches = 0
+        self.windows = 0
         self.shapes: set | None = None
 
     def launched(self, *shape) -> None:
         self.launches += 1
+        if shape[0] > 16:
+            self.windows += 1
         if self.shapes is not None:
             self.shapes.add(shape)
 

@@ -37,16 +37,17 @@ _BN = 128     # output columns per kernel block (csrc/matmul_int8.cu kBN)
 _KTILE = 128  # k-rows per kernel step (csrc/matmul_int8.cu kKTile)
 
 
-_INT4_SMALL_M = 16  # M up to which INT4 takes the weight-streaming kernel
-_INT4_RTILE = 128   # packed rows per step of that kernel (csrc/matmul_int4.cu sKTile)
+_INT4_SMALL_M = 16  # M up to which INT4 takes decode tiles (8 or 16 tokens) with a K split
+_INT4_RTILE = 128   # unit of a K split in packed rows (whole 32-row stages of the kernel)
 
 int8_matmul_counter = _kernels.LaunchCounter()
 int4_matmul_counter = _kernels.LaunchCounter()   # per-channel layout (scale [N])
 int4g_matmul_counter = _kernels.LaunchCounter()  # grouped layout (scale [K/gs, N])
 w8a8_matmul_counter = _kernels.LaunchCounter()
 
-_W8A8_SMALL_M = 16  # M up to which W8A8 takes the weight-streaming kernel
-_W8A8_TILE = 128    # rows and columns of a block tile of the tensor-core kernel
+_W8A8_SMALL_M = 16  # M up to which W8A8 takes one 16-row tile
+_W8A8_TILE = 128    # columns of a block tile; rows too where M > 16
+_W8A8_KSTEP = 64    # k-rows per stage of the kernel's copy ring (unit of a K split)
 
 
 def quantized_matmul_ref(
@@ -114,21 +115,36 @@ def int8_matmul_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> t
     return out
 
 
+def split_bf16x3(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The three bf16 terms the INT4 kernel feeds the tensor cores for f32 x
+    (``split3`` in ``csrc/matmul_int4.cu``): ``hi = bf16(x)``, ``mid =
+    bf16(x - hi)``, ``lo = bf16(x - hi - mid)``, each rounded to nearest.
+    Their sum is x exactly (3 x 8 significand bits cover f32's 24) for
+    x whose magnitude is 0 or between 2^-110 and 2^127; smaller magnitudes
+    lose bits below bf16's smallest subnormal (2^-133)."""
+    xf = x.float()
+    hi = xf.to(torch.bfloat16)
+    r = xf - hi.float()
+    mid = r.to(torch.bfloat16)
+    lo = (r - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
 def _int4_plan(M: int, N: int, K: int, gs: int, n_sm: int) -> tuple[int, int, int]:
-    """(large, splits, rows_per_split) for the INT4 kernel. ``large`` 0: the
-    weight-streaming kernel (M <= 16), its packed rows split across blocks
-    until about four blocks per SM are in flight, every split a multiple of
-    the 128-row step and of the group size, so that a split boundary falls on
-    a group boundary. ``large`` 1: the tiled kernel, which splits nothing."""
+    """(large, splits, rows_per_split) for the INT4 kernel. K's packed rows are
+    split until N / 128 column blocks put about four blocks on each SM, every
+    split a multiple of 128 packed rows (whole kernel stages) and of the group
+    size, so that a split boundary falls on a group boundary. The split
+    depends on N and K only, not on M: ``large`` 0 (decode tiles, M <= 16)
+    runs one split a block and sums the splits in a second kernel; ``large``
+    1 (64- or 128-row tiles) runs them in turn in one block and sums them in
+    the same order, so both give a row the same result."""
     Kh = K // 2
-    if M > _INT4_SMALL_M:
-        return 1, 1, Kh
-    bm = 1 if M <= 1 else 2 if M <= 2 else 4 if M <= 4 else 8
-    blocks = math.ceil(N / _BN) * math.ceil(M / bm)
+    blocks = math.ceil(N / _BN)
     unit = math.lcm(_INT4_RTILE, gs) if gs else _INT4_RTILE
     splits = max(1, min(math.ceil(4 * n_sm / blocks), math.ceil(Kh / unit)))
     r_per = math.ceil(math.ceil(Kh / splits) / unit) * unit
-    return 0, math.ceil(Kh / r_per), r_per
+    return int(M > _INT4_SMALL_M), math.ceil(Kh / r_per), r_per
 
 
 def int4_matmul_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -160,8 +176,10 @@ def int4_matmul_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> t
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
     large, splits, r_per = _int4_plan(M, N, K, gs, n_sm)
     partial = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-               if splits > 1 else None)
-    vec = int(N % 16 == 0 and q.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0)
+               if splits > 1 and not large else None)
+    # 16-byte copies of q rows and of x rows' halves
+    vec = int(N % 16 == 0 and q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0
+              and (Kh * x.element_size()) % 16 == 0)
     rc = _kernels.function("int4_matmul")(
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
         partial.data_ptr() if partial is not None else None,
@@ -229,24 +247,34 @@ def quantized_matmul_w8a8_ref(
 
 
 def _w8a8_plan(M: int, N: int, K: int, n_sm: int) -> tuple[int, int, int]:
-    """(large, splits, k_per_split) for the W8A8 kernel. ``large`` 0: the
-    weight-streaming kernel (M <= 16), K split as the weight-only INT8 kernel
-    splits it. ``large`` 1: the tensor-core kernel, K split only while its
-    128x128 tiles leave SMs idle. Every split is a multiple of 128 k-rows."""
+    """(large, splits, k_per_split) for the W8A8 kernel. ``large`` 0: one
+    16-row tile (M <= 16), K split across blocks until about four blocks per
+    SM stream weights. ``large`` 1: 128x128 tiles, K split only while they
+    leave SMs idle. Every split is a multiple of the 64-row stage."""
     if M <= _W8A8_SMALL_M:
-        return (0, *_split_k(M, N, K, n_sm))
-    blocks = math.ceil(M / _W8A8_TILE) * math.ceil(N / _W8A8_TILE)
-    splits = max(1, min(math.ceil(2 * n_sm / blocks), math.ceil(K / 512)))
-    if blocks >= n_sm:
-        splits = 1
-    k_per = math.ceil(math.ceil(K / splits) / _KTILE) * _KTILE
-    return 1, math.ceil(K / k_per), k_per
+        blocks = math.ceil(N / _W8A8_TILE)
+        splits = max(1, min(math.ceil(4 * n_sm / blocks), math.ceil(K / _W8A8_KSTEP)))
+        large = 0
+    else:
+        blocks = math.ceil(M / _W8A8_TILE) * math.ceil(N / _W8A8_TILE)
+        splits = 1 if blocks >= n_sm else max(1, min(math.ceil(2 * n_sm / blocks),
+                                                     math.ceil(K / 512)))
+        large = 1
+    k_per = math.ceil(math.ceil(K / splits) / _W8A8_KSTEP) * _W8A8_KSTEP
+    return large, math.ceil(K / k_per), k_per
+
+
+def _w8a8_tiles(M: int, N: int, large: int) -> int:
+    """Output tiles of the W8A8 kernel's grid: one split-K counter each."""
+    return math.ceil(N / _W8A8_TILE) * math.ceil(M / (_W8A8_TILE if large else _W8A8_SMALL_M))
 
 
 def int8x8_matmul_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Launch the Hopper W8A8 kernel: x [M, K] bf16/f32 CUDA, q [K, N] int8,
     scale [N] f32 -> [M, N] in x.dtype. The activations are quantised by the
-    kernel library's prologue into a workspace allocated here."""
+    kernel library's prologue into a workspace allocated here; so are the
+    split-K int32 sums and tile counters, which the prologue zeroes. Every
+    workspace belongs to this call, on this call's stream."""
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"w8a8 matmul kernel takes bf16/f32 x, got {x.dtype}")
     if q.dtype != torch.int8 or scale.dtype != torch.float32:
@@ -267,12 +295,15 @@ def int8x8_matmul_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) ->
     Kp = math.ceil(K / 16) * 16
     xq = torch.empty((M, Kp), dtype=torch.int8, device=x.device)
     xs = torch.empty((M,), dtype=torch.float32, device=x.device)
-    partial = (torch.empty((splits, M, N), dtype=torch.int32, device=x.device)
-               if splits > 1 else None)
+    acc = counters = None
+    if splits > 1:
+        acc = torch.empty((M, N), dtype=torch.int32, device=x.device)
+        counters = torch.empty((_w8a8_tiles(M, N, large),), dtype=torch.int32, device=x.device)
     vec = int(N % 16 == 0 and q.data_ptr() % 16 == 0)
     rc = _kernels.function("w8a8_matmul")(
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(), xq.data_ptr(),
-        xs.data_ptr(), partial.data_ptr() if partial is not None else None,
+        xs.data_ptr(), acc.data_ptr() if acc is not None else None,
+        counters.data_ptr() if counters is not None else None,
         M, N, K, Kp, splits, k_per, int(x.dtype == torch.bfloat16), vec, large,
         _kernels.stream_of(x),
     )

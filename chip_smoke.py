@@ -39,15 +39,18 @@ Phases, one JSON line each; any failure exits non-zero:
    default config, a forced walk across every tier, a large lambda override,
    the inline (on-device) decision path, and one ``batch_process`` in which
    three requests climb every tier together. Before
-   it, the 14B INT4 tier verifies its own greedy output in bf16 and in f32
-   activations; the INT4 tiers run the first type that accepts in full.
+   it, the 14B INT4 tier verifies its own greedy output in f32 and in bf16
+   activations and must accept it in full in both; the INT4 tiers run bf16.
+   Then one forced walk in each type, the f32 tiers sharing the bf16 tiers'
+   weights, to compare the two.
    scheduled_pipeline: ``ScheduledCascadePipeline`` over 7B INT8 W8A8 -> 14B
    INT4 -> 32B INT4 (the same engines and weights), prefix cache and prefetch
    on: eight concurrent submits, one streamed request, a forced walk, a
    response-cache hit; every decision recomputed on the host; stages and
    tokens held against ``AdaptiveCascadePipeline`` over the same engines.
 7. step: one decode step of each tier, its launches per kernel, its time and
-   the device's busy time by kernel (torch.profiler).
+   the device's busy time by kernel (torch.profiler), and the seconds of a
+   512-token prefill; the INT4 tiers also with f32 activations.
 8. path_shapes: the matmul wrappers collected every distinct (M, K, N, group
    size, type) that paths 4, 5 and 6 launched them at; each kernel is held
    against its plain version at every one of them.
@@ -116,6 +119,10 @@ N_PAGES = 512
 # differently enough over 48 layers to flip near-tied argmaxes of random
 # weights (measured: 3 of 4 requests diverged within 32 tokens).
 TIER_DTYPES = (torch.bfloat16, torch.float32)
+# Activation type of the pipeline's INT4 tiers (14B, 32B). Their decode steps
+# and verify windows sum every output in one order, so bf16 accepts its own
+# greedy output in full as f32 does; the pipeline phase requires both.
+INT4_DTYPE = torch.bfloat16
 # The pipeline phase: prompt lengths in tokens (words, one token each), the
 # per-tier costs of the 7B/14B/32B hierarchy, and the largest M its INT4
 # tiers see: batch_process verifies four [prompt + draft] windows at once.
@@ -192,13 +199,20 @@ _KERNELS = {
 }
 
 
+_MATMULS = ("w8a8_matmul", "int8_matmul", "int4_matmul_grouped", "int4_matmul_per_channel")
+
+
 def zero_counters() -> None:
     for c in _KERNELS.values():
-        c["counter"].launches = 0
+        c["counter"].launches = c["counter"].windows = 0
 
 
 def read_counters() -> dict:
-    return {k: c["counter"].launches for k, c in _KERNELS.items()}
+    """Launches by kernel; for the matmuls also "<kernel>/window", their
+    launches at M > 16 (the rest are decode launches)."""
+    out = {k: c["counter"].launches for k, c in _KERNELS.items()}
+    out.update({f"{k}/window": _KERNELS[k]["counter"].windows for k in _MATMULS})
+    return out
 
 
 def emit(obj) -> None:
@@ -247,15 +261,27 @@ class Timer:
         return total / reps
 
 
+def _ptxas_usage(log: str) -> list:
+    """One line per kernel from ``nvcc -Xptxas -v``: its (mangled) name, its
+    registers and shared memory, its stack frame and spills."""
+    rows, name, spill = [], None, ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and name is not None:
+            rows.append(f"{name}: {ln.split('ptxas info    : ')[-1]}; {spill}")
+            name, spill = None, ""
+    return rows
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     built = _kernels.build(ptxas_verbose=True)
     for name in _kernels.KERNELS:
         _kernels.function(name)  # load; raises if missing
-    usage = {}
-    for name, info in built.items():
-        usage[name] = [ln.split("ptxas info    : ")[-1] for ln in info["log"].splitlines()
-                       if "Used" in ln]
+    usage = {name: _ptxas_usage(info["log"]) for name, info in built.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": {n: i["seconds"] for n, i in built.items()}, "ptxas": usage})
 
@@ -268,7 +294,7 @@ def _agg(rows, key):
 def phase_kernels(dev, rates, timer) -> dict:
     """Each kernel against its plain version at the paths' shapes and
     activation types (TIER_DTYPES for the INT8 hop: 7B in bf16, 14B in f32;
-    the INT4 tiers in both types, since the pipeline phase picks one)."""
+    the INT4 tiers in both types, since the pipeline phase runs both)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator(device=dev).manual_seed(0)
     results = {k: [] for k in _KERNELS}
@@ -350,8 +376,11 @@ def phase_kernels(dev, rates, timer) -> dict:
 
     # INT4 weight-only matmul (csrc/matmul_int4.cu). Same tolerance and reason
     # as INT8: f32 sums in another order (per group, then across groups),
-    # bf16 outputs rounded once. No single PyTorch call computes a split-half
-    # packed, group-scaled INT4 product, so there is no library time.
+    # bf16 outputs rounded once. Bound: bytes, or operations at the bf16
+    # tensor-core peak for both types (f32 x runs as three exact bf16 terms;
+    # no exact f32 product on the card is faster than one bf16 pass).
+    # Library yardstick, grouped bf16 only: torch._weight_int4pack_mm on the
+    # same values repacked once (its scales are bf16).
     def int4_case(kernel, label, M, K, N, gs, dtype, reps=None):
         esize = torch.empty((), dtype=dtype).element_size()
         q = torch.randint(-128, 128, (K // 2, N), generator=g, device=dev, dtype=torch.int8)
@@ -365,7 +394,8 @@ def phase_kernels(dev, rates, timer) -> dict:
               nbytes=M * K * esize + (K // 2) * N + scale.numel() * 4 + M * N * esize,
               ops=2 * M * N * K,
               fn_k=lambda: MQ.int4_matmul_cuda(x, q, scale),
-              fn_p=lambda: MQ.quantized_matmul_ref(x, q, scale, bits=4), reps=reps)
+              fn_p=lambda: MQ.quantized_matmul_ref(x, q, scale, bits=4),
+              fn_lib=_int4pack_call(x, q, scale, gs), reps=reps, ops_dtype=torch.bfloat16)
         del q, x, out, ref
         torch.cuda.empty_cache()
 
@@ -474,6 +504,36 @@ def _int8pack_call(x, q, scale):
     except (RuntimeError, NotImplementedError):
         return None
     return lambda: fn(x, w_nk, s)
+
+
+def _int4pack_call(x, q, scale, gs):
+    """torch._weight_int4pack_mm as the library yardstick of the grouped INT4
+    product, bf16 x only: the weights repacked once (outside the timing) by
+    torch._convert_weight_to_int4pack from their unsigned values u = w + 8
+    ([N, K/2] bytes, even k in the high nibble), dequantised by the call as
+    (u - 8) * s + 0 with bf16 scales. None where this build refuses it."""
+    conv = getattr(torch, "_convert_weight_to_int4pack", None)
+    fn = getattr(torch, "_weight_int4pack_mm", None)
+    if conv is None or fn is None or x.dtype != torch.bfloat16 or not gs:
+        return None
+    from adaptive_sd_tpu_torch.ops.quant import unpack_int4
+
+    u = (unpack_int4(q).to(torch.int32) + 8).t().contiguous()  # [N, K], 0..15
+    packed = ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8)
+    sz = torch.stack([scale.to(torch.bfloat16), torch.zeros_like(scale, dtype=torch.bfloat16)],
+                     dim=-1).contiguous()  # [K / gs, N, 2]
+    try:
+        w = conv(packed, 8)
+        got = fn(x, w, gs, sz)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, TypeError):
+        return None
+    want = MQ.quantized_matmul_ref(x, q, scale, bits=4).float()
+    if not torch.allclose(got.float(), want, rtol=5e-2, atol=0.1):
+        emit({"phase": "kernels", "note": "torch._weight_int4pack_mm differs from the plain "
+              f"version (max abs {float((got.float() - want).abs().max())}); no library time"})
+        return None
+    return lambda: fn(x, w, gs, sz)
 
 
 def _int_mm_call(x, q, scale):
@@ -932,6 +992,16 @@ def phase_per_channel(dev) -> dict:
     return launches
 
 
+def _f32_twin(engine, n_pages: int = 64):
+    """The engine's weights with f32 activations (the quantized projections
+    are shared, embeddings and norms cast), with a KV pool of its own."""
+    twin = TierEngine(engine.spec, _cast_activations(engine.params, torch.float32),
+                      page_size=engine.page_size, n_pages=n_pages, device=engine.device,
+                      enable_prefix_cache=engine.prefix_cache is not None)
+    twin.warmup()
+    return twin
+
+
 def _cast_activations(params, dtype):
     """The same weights with activations of another type: embeddings, norms
     and biases are cast; quantized projections carry no activation type."""
@@ -984,7 +1054,7 @@ def phase_pipeline(dev, tier0) -> tuple:
     tokenize = _tokenize(vocab)
     tok_prompts = [tokenize(t) for t in texts]
 
-    # -- the 14B INT4 tier verifies its own greedy output: bf16, then f32 --------
+    # -- the 14B INT4 tier verifies its own greedy output: f32, then bf16 --------
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params1 = init_params_quantized(specs[1], torch.Generator(device=dev).manual_seed(201),
@@ -992,27 +1062,27 @@ def phase_pipeline(dev, tier0) -> tuple:
     torch.cuda.synchronize()
     setup = {"init_14b_int4_s": time.perf_counter() - t0}
     kw = dict(page_size=PAGE, n_pages=N_PAGES, device=dev, enable_prefix_cache=True)
-    trials, tier1 = [], None
-    for dtype in (torch.bfloat16, torch.float32):
+    trials, tier1 = {}, None
+    for dtype in (torch.float32, INT4_DTYPE):
         tier1 = None
         gc.collect()
         torch.cuda.empty_cache()
         tier1 = TierEngine(specs[1], _cast_activations(params1, dtype), **kw)
         tier1.warmup()
-        trials.append(_self_verify(tier1, tok_prompts, f"{specs[1].name} int4 grouped"))
-        emit({"phase": "pipeline_self_verify", **trials[-1]})
-        if trials[-1]["n_acc"] == [MAX_NEW] * len(tok_prompts) and trials[-1]["tokens_unchanged"]:
-            break
-    else:
-        fail("the 14B INT4 tier accepted its own greedy output in full in neither bf16 "
-             f"nor f32: {[t['n_acc'] for t in trials]}")
-    int4_dtype = tier1.params["embed"].dtype
+        trials[dtype] = _self_verify(tier1, tok_prompts, f"{specs[1].name} int4 grouped")
+        emit({"phase": "pipeline_self_verify", **trials[dtype]})
+    # decode steps and verify windows sum each output in one order, so the
+    # tier accepts its own greedy output in full in either type
+    for dtype, t in trials.items():
+        if t["n_acc"] != [MAX_NEW] * len(tok_prompts) or not t["tokens_unchanged"]:
+            fail(f"the 14B INT4 tier did not accept its own greedy output in full in {dtype}: "
+                 f"{t['n_acc']}")
     del params1
 
-    # -- the 32B INT4 tier, in the type the 14B tier settled on ------------------
+    # -- the 32B INT4 tier -------------------------------------------------------
     t0 = time.perf_counter()
     params2 = init_params_quantized(specs[2], torch.Generator(device=dev).manual_seed(202),
-                                    bits=4, device=dev, dtype=int4_dtype)
+                                    bits=4, device=dev, dtype=INT4_DTYPE)
     tier2 = TierEngine(specs[2], params2, **kw)
     tier2.warmup()
     torch.cuda.synchronize()
@@ -1022,19 +1092,19 @@ def phase_pipeline(dev, tier0) -> tuple:
         q = e.params["layers"][0]["gateup_proj"]
         if q.bits != 4 or q.scale.ndim != 2 or e.params["lm_head"].bits != 4:
             fail(f"{e.spec.name}: the weights are not grouped INT4")
-    emit({"phase": "pipeline_setup", **setup, "int4_activations": str(int4_dtype),
+    emit({"phase": "pipeline_setup", **setup, "int4_activations": str(INT4_DTYPE),
           "tiers": [{"spec": e.spec.name, "layers": e.spec.n_layers, "hidden": e.spec.hidden,
                      "weights": "int8" if i == 0 else "int4 grouped, gs=128",
                      "activations": str(e.params["embed"].dtype),
                      "memory_bytes": e.memory_usage_bytes()} for i, e in enumerate(engines)],
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
 
-    def stages(inline_policy=None):
+    def stages(inline_policy=None, tiers=engines):
         return StageManager([
             EngineTextStage(e, tokenize, _detokenize, name=e.spec.name,
                             cost_per_token=PIPE_COSTS[i], stage_index=i,
                             inline_policy=inline_policy if i == 0 else None)
-            for i, e in enumerate(engines)])
+            for i, e in enumerate(tiers)])
 
     predictor = MLPQualityPredictor(n_stages=3, seed=10)
     walk_predictor = MLPQualityPredictor(n_stages=3, seed=10)
@@ -1092,8 +1162,9 @@ def phase_pipeline(dev, tier0) -> tuple:
     if any(batch[f"smoke_batch_{i}"]["stages"] != [0, 1, 2] for i in (1, 3, 2)):
         fail(f"batch: not every climbing request visited every tier: "
              f"{[r['stages'] for r in batch.values()]}")
-    emit({"phase": "pipeline_summary", "int4_activations": str(int4_dtype),
-          "self_verify": [{k: t[k] for k in ("activations", "n_acc", "of")} for t in trials],
+    emit({"phase": "pipeline_summary", "int4_activations": str(INT4_DTYPE),
+          "self_verify": [{k: t[k] for k in ("activations", "n_acc", "of")}
+                          for t in trials.values()],
           "launches": launches, "stats": {k: pipes[k].get_stats()["stage_counts"] for k in pipes},
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
     _require_launches("pipeline", launches,
@@ -1105,6 +1176,27 @@ def phase_pipeline(dev, tier0) -> tuple:
         fail(f"pipeline: a stage or a request failed: {errors}")
     for pipe in pipes.values():
         pipe.shutdown()
+
+    # one forced walk with the INT4 tiers in each type, on prompts no tier has
+    # seen; the f32 tiers share the bf16 tiers' weights (not on the path)
+    walk_rng = np.random.default_rng(8)
+    for dtype in (INT4_DTYPE, torch.float32):
+        tiers = [tier0, tier1, tier2] if dtype == INT4_DTYPE else [
+            tier0, _f32_twin(tier1), _f32_twin(tier2)]
+        pipe = AdaptiveCascadePipeline(stages(tiers=tiers), predictor, PipelineConfig(
+            quality_floor=1.5, min_draft_quality_for_verify=0.0, direct_entry=False,
+            allow_tier_skip=False, **base))
+        req = RequestContext(prompt=_text_prompt(walk_rng, max(PIPE_PROMPT_LENS)),
+                             max_tokens=MAX_NEW, request_id=f"smoke_walk_{dtype}")
+        res, secs = _call(pipe.process_request, req)
+        row = _pipeline_row(f"forced_walk_int4_{str(dtype).split('.')[-1]}", pipe, req, res,
+                            secs, vocab, inline_head)
+        if row["stages"] != [0, 1, 2]:
+            fail(f"the {dtype} forced walk visited {row['stages']}, not every tier")
+        pipe.shutdown()
+        del tiers, pipe
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches, [tier1, tier2]
 
 
@@ -1146,7 +1238,7 @@ def phase_scheduled_pipeline(dev, tier0_w8a8, int4_engines) -> dict:
     # The launch counts of this path are the scheduled plane's alone: zeroed
     # before each scheduled pipeline is built, read after it has shut down, and
     # summed; the fused plane's runs in between are not counted.
-    launches = dict.fromkeys(_KERNELS, 0)
+    launches = dict.fromkeys(read_counters(), 0)
 
     def count_scheduled():
         for k, n in read_counters().items():
@@ -1398,8 +1490,7 @@ def _scan_profile(engine) -> dict:
             "idle_share": None if busy is None else max(0.0, 1.0 - busy / scan_ms),
             "host_syncs_in_scan": syncs,
             "kernel_ms": {name: sum(ms for k, ms in kernels if name in k)
-                          for name in ("w8a8_stream", "w8a8_mma", "quant_rows", "w8a8_reduce",
-                                       "paged_decode")},
+                          for name in ("w8a8_mma", "quant_rows", "paged_decode")},
             "top_kernels_ms": [[k[:90], ms] for k, ms in kernels[:8]]}
 
 
@@ -1590,8 +1681,8 @@ def phase_step(engines) -> None:
                          key=lambda kv: -kv[1])
         busy = sum(ms for _, ms in kernels) if kernels else None
         by_kernel = {name: sum(ms for k, ms in kernels if name in k)
-                     for name in ("int8_matmul", "int4_matmul", "splitk_reduce", "w8a8_stream",
-                                  "quant_rows", "w8a8_reduce", "paged_decode")}
+                     for name in ("int8_matmul", "int4_matmul", "splitk_reduce", "w8a8_mma",
+                                  "quant_rows", "paged_decode")}
         weights = f"int{e.params['layers'][0]['qkv_proj'].bits}" + (
             " act_quant" if e.act_quant else "")
         emit({"phase": "step", "tier": e.spec.name, "weights": weights,
@@ -1671,7 +1762,7 @@ def main() -> int:
     kernel_rows = phase_kernels(dev, rates, Timer(dev))
     phase_reference(dev)
     phase_reference_sched(dev)
-    for k in ("w8a8_matmul", "int8_matmul", "int4_matmul_grouped", "int4_matmul_per_channel"):
+    for k in _MATMULS:
         _KERNELS[k]["counter"].shapes = set()
     paths = {}
     paths["serve"], engines = phase_serve(dev)
@@ -1687,6 +1778,8 @@ def main() -> int:
     paths["pipeline"], int4_engines = phase_pipeline(dev, tier0)
     paths["scheduled_pipeline"] = phase_scheduled_pipeline(dev, tier0_w8a8, int4_engines)
     phase_step([*int4_engines, tier0_w8a8])
+    # the INT4 tiers once more with f32 activations, on the same weights
+    phase_step([_f32_twin(e) for e in int4_engines])
     del tier0, tier0_w8a8, int4_engines
     gc.collect()
     torch.cuda.empty_cache()
@@ -1700,6 +1793,9 @@ def main() -> int:
             "replaces": info["replaces"],
             "launches": sum(p[k] for p in paths.values()),
             "launches_by_path": {name: p[k] for name, p in paths.items()},
+            **({"launches_by_variant": {
+                name: {"decode": p[k] - p[f"{k}/window"], "window": p[f"{k}/window"]}
+                for name, p in paths.items()}} if k in _MATMULS else {}),
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": _agg(rows, "kernel_ms"), "plain_ms": _agg(rows, "plain_ms"),
             "bound_ms": _agg(rows, "bound_ms"),

@@ -328,3 +328,120 @@ def test_scheduler_on_card_matches_cpu(cuda, act_quant):
     else:
         assert card["plain"] == cpu["plain"]
         assert [t[:32] for t in card["roomy"][0]] == [t[:32] for t in cpu["roomy"][0]]
+
+
+# Tile edges of the INT4 and W8A8 tensor-core kernels: INT4 decode tiles of 8
+# and 16 tokens and W8A8 16-row tiles up to M = 16, 64-row (INT4 bf16) and
+# 128-row tiles above, every partial tile.
+_EDGE_M = [1, 2, 7, 8, 9, 15, 16, 17, 63, 64, 65, 128, 129, 300, 2304]
+# the matmul tolerance of chip_smoke.py (MM_TOL): f32 sums in another order,
+# bf16 outputs rounded once
+_MM_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rtol=1e-2, atol=2e-2)}
+
+
+@pytest.mark.parametrize("M", _EDGE_M)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int4_matmul_tile_edges(cuda, M, dtype):
+    """A group that straddles the packed halves (K = 384, gs = 128) with
+    ragged N, ragged K (K/2 = 500) per-channel, and an aligned grouped shape
+    that splits K at small M."""
+    for K, N, gs in ((384, 200, 128), (1000, 130, None), (4096, 512, 128)):
+        g = torch.Generator(device=cuda).manual_seed(M + K + N)
+        t = quantize_int4(torch.randn(K, N, generator=g, device=cuda), group_size=gs)
+        x = torch.randn(M, K, generator=g, device=cuda).to(dtype)
+        out = MQ.quantized_matmul(x, t.q, t.scale, bits=4)
+        ref = MQ.quantized_matmul_ref(x, t.q, t.scale, bits=4)
+        torch.testing.assert_close(out.float(), ref.float(), **_MM_TOL[dtype])
+
+
+def _offset(t: torch.Tensor, shift: int) -> torch.Tensor:
+    """A contiguous view of t's values whose data pointer is `shift` elements
+    past an aligned allocation (no 16-byte alignment)."""
+    buf = torch.empty(t.numel() + shift, dtype=t.dtype, device=t.device)
+    view = buf[shift:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("M", [4, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int4_matmul_unaligned_x_and_q(cuda, M, dtype):
+    """x and q at unaligned addresses take the kernel's element-wise staging."""
+    g = torch.Generator(device=cuda).manual_seed(M)
+    t = quantize_int4(torch.randn(512, 256, generator=g, device=cuda), group_size=128)
+    x = _offset(torch.randn(M, 512, generator=g, device=cuda).to(dtype), 1)
+    q = _offset(t.q, 3)
+    out = MQ.quantized_matmul(x, q, t.scale, bits=4)
+    ref = MQ.quantized_matmul_ref(x, q, t.scale, bits=4)
+    torch.testing.assert_close(out.float(), ref.float(), **_MM_TOL[dtype])
+
+
+@pytest.mark.parametrize("M", range(1, 17))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_w8a8_equal_at_every_decode_m(cuda, M, dtype):
+    """Every M of the 16-row tile, K split across blocks (integer atomics)."""
+    g = torch.Generator(device=cuda).manual_seed(M)
+    t = quantize_int8(torch.randn(3584, 512, generator=g, device=cuda))
+    x = (torch.randn(M, 3584, generator=g, device=cuda) * 3).to(dtype)
+    assert MQ._w8a8_plan(M, 512, 3584, 132)[1] > 1
+    out = MQ.quantized_matmul_w8a8(x, t.q, t.scale)
+    assert torch.equal(out, MQ.quantized_matmul_w8a8_ref(x, t.q, t.scale))
+
+
+@pytest.mark.parametrize("M", _EDGE_M)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_w8a8_tile_edges(cuda, M, dtype):
+    """Ragged K and N at every tile edge, and an unaligned q."""
+    g = torch.Generator(device=cuda).manual_seed(M)
+    for K, N in ((515, 4099), (1024, 256)):
+        t = quantize_int8(torch.randn(K, N, generator=g, device=cuda))
+        x = (torch.randn(M, K, generator=g, device=cuda) * 3).to(dtype)
+        for q in (t.q, _offset(t.q, 5)):
+            out = MQ.quantized_matmul_w8a8(x, q, t.scale)
+            assert torch.equal(out, MQ.quantized_matmul_w8a8_ref(x, q, t.scale)), (K, N)
+
+
+@pytest.mark.parametrize("kernel", ["int4", "w8a8"])
+def test_two_streams_give_the_sequential_results(cuda, kernel):
+    """Two calls at once on two streams (their split-K workspaces and tile
+    counters are the calls' own) give the results of two calls in sequence."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    K, N = 5120, 7168
+    if kernel == "int4":
+        t = quantize_int4(torch.randn(K, N, generator=g, device=cuda), group_size=128)
+        fn = lambda x: MQ.quantized_matmul(x, t.q, t.scale, bits=4)  # noqa: E731
+    else:
+        t = quantize_int8(torch.randn(K, N, generator=g, device=cuda))
+        fn = lambda x: MQ.quantized_matmul_w8a8(x, t.q, t.scale)  # noqa: E731
+    xs = [torch.randn(M, K, generator=g, device=cuda) for M in (4, 8, 300)]
+    want = [fn(x) for x in xs]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    for _ in range(3):
+        outs = [[], []]
+        for s in streams:
+            s.wait_stream(torch.cuda.current_stream())
+        for x in xs:
+            for i, s in enumerate(streams):
+                with torch.cuda.stream(s):
+                    outs[i].append(fn(x))
+        torch.cuda.synchronize()
+        for o in outs:
+            for a, b in zip(o, want):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("gs", [128, None])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int4_row_results_do_not_depend_on_m(cuda, gs, dtype):
+    """A row's output is the same bit for bit whether it is computed in a
+    decode tile (8 or 16 tokens, K split across blocks) or a larger tile
+    (windows): both sum a row in one order, so decode and verify agree."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    K, N = 5120, 7168
+    t = quantize_int4(torch.randn(K, N, generator=g, device=cuda), group_size=gs)
+    x = torch.randn(300, K, generator=g, device=cuda).to(dtype)
+    assert MQ._int4_plan(1, N, K, gs or 0, 132)[1] > 1
+    full = MQ.quantized_matmul(x, t.q, t.scale, bits=4)
+    for rows in (slice(0, 1), slice(5, 9), slice(3, 12), slice(100, 116), slice(17, 81)):
+        assert torch.equal(MQ.quantized_matmul(x[rows], t.q, t.scale, bits=4), full[rows])

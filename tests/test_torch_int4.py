@@ -108,7 +108,11 @@ def test_int4_plan_small_m_splits_cover_k_on_group_boundaries(M, N, K, gs):
 
 @pytest.mark.parametrize("M,N", [(17, 5120), (300, 5120), (2300, 55296), (132, 152064)])
 def test_int4_plan_large_m_tile(M, N):
-    assert tmm._int4_plan(M, N, 5120, 128, 132) == (1, 1, 2560)
+    """Above 16 rows the larger tiles; the K split is the one decode takes
+    (it depends on N and K only), so a row sums in the same order at every M."""
+    large, splits, r_per = tmm._int4_plan(M, N, 5120, 128, 132)
+    assert large == 1
+    assert (splits, r_per) == tmm._int4_plan(1, N, 5120, 128, 132)[1:]
 
 
 def test_int4_cuda_wrapper_refuses_cpu_and_wrong_types():
@@ -176,3 +180,63 @@ def test_port_int4_init_and_quantize_model_layouts():
     raw = init_params_quantized(TINY128, 0, bits=16, device="cpu", dtype=torch.float32)
     q = quantize_model(raw, bits=4, group_size=None)
     assert q["lm_head"].bits == 4 and q["lm_head"].scale.ndim == 1
+
+
+@pytest.mark.parametrize("exp_range", [(-30, -10), (-10, 10), (10, 38), (-33, 38)])
+def test_split_bf16x3_sums_back_exactly(exp_range):
+    """The three bf16 terms of f32 activations (the CUDA kernel's split for
+    f32 x) sum back to x exactly, from tiny to huge magnitudes, with zeros and
+    both signs."""
+    rng = np.random.default_rng(exp_range[0] + 100)
+    mant = rng.uniform(1.0, 10.0, 4096) * rng.choice([-1.0, 1.0], 4096)
+    x = (mant * 10.0 ** rng.integers(*exp_range, 4096)).astype(np.float32)
+    x[:7] = [0.0, -0.0, 1.0, -1.0, np.float32(2.0 ** -110), np.float32(3.3e38), 1 + 2.0 ** -23]
+    hi, mid, lo = tmm.split_bf16x3(_t(x))
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    back = hi.double() + mid.double() + lo.double()
+    np.testing.assert_array_equal(back.numpy(), x.astype(np.float64))
+    # each term is what the next cannot hold: |mid| <= ulp_bf16(hi) / 2
+    np.testing.assert_array_less(mid.double().abs().numpy(),
+                                 hi.double().abs().numpy() * 2.0 ** -8 + 1e-300)
+
+
+@pytest.mark.parametrize("M", [1, 5, 600])
+@pytest.mark.parametrize("group_size", [128, 32])
+def test_int4_three_term_product_matches_jax_pallas_interpret(M, group_size):
+    """The grouped INT4 product as the CUDA kernel forms it for f32 x: each
+    bf16 term times the INT4 weights, each group's sub-dot scaled after the
+    dot (sums in f64 here), agrees with the JAX Pallas kernel in interpret
+    mode on f32 x."""
+    rng = np.random.default_rng(M + group_size)
+    K, N = 512, 256
+    w = rng.normal(size=(K, N)).astype(np.float32)
+    x = rng.normal(size=(M, K)).astype(np.float32)
+    jt = jquant.quantize_int4(jnp.asarray(w), group_size=group_size)
+    jout = np.asarray(jmm.quantized_matmul(jnp.asarray(x), jt.q, jt.scale, bits=4,
+                                           interpret=True))
+    wq = tquant.unpack_int4(_t(np.asarray(jt.q))).double()       # [K, N] in [-8, 7]
+    s = _t(np.asarray(jt.scale)).double()                        # [K / gs, N]
+    terms = tmm.split_bf16x3(_t(x))
+    y = torch.zeros(M, N, dtype=torch.float64)
+    for gi in range(K // group_size):
+        rows = slice(gi * group_size, (gi + 1) * group_size)
+        sub = sum(t[:, rows].double() @ wq[rows] for t in terms)  # exact products
+        y += sub * s[gi]
+    np.testing.assert_allclose(y.numpy(), jout, **F32)
+
+
+@pytest.mark.parametrize("M,N,K,gs", [
+    (1, 7168, 5120, 128), (16, 200, 384, 128), (3, 130, 768, 32), (2, 96, 1000, 0),
+    (300, 5120, 5120, 128), (2304, 55296, 27648, 128),
+])
+def test_int4_plan_workspace_fits_every_split(M, N, K, gs):
+    """The partial-sum workspace [splits, M, N] of the decode tiles holds one
+    slab per split; the splits' packed rows (whole 32-row kernel stages, on
+    group boundaries) tile K/2 with none empty; the larger tiles loop over
+    the same splits and need no workspace."""
+    large, splits, r_per = tmm._int4_plan(M, N, K, gs, 132)
+    Kh = K // 2
+    assert large == int(M > 16)
+    spans = [(i * r_per, min(Kh, (i + 1) * r_per)) for i in range(splits)]
+    assert spans[0][0] == 0 and spans[-1][1] == Kh and all(a < b for a, b in spans)
+    assert r_per % 32 == 0 and (not gs or r_per % gs == 0)

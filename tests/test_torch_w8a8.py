@@ -172,3 +172,25 @@ def test_act_quant_forward_matches_jax(monkeypatch):
                             jnp.asarray(tables), use_pallas=True, act_quant=True)
     tl, _ = tq.decode_step(tp, TTINY, T(tok), T(lens), tc, T(tables), act_quant=True)
     close(tl, jl)
+
+
+@pytest.mark.parametrize("M,K,N", [
+    (1, 3584, 4608), (8, 3584, 152064), (16, 18944, 3584), (5, 100, 130), (17, 3584, 4608),
+    (192, 3584, 3584), (2304, 3584, 37888), (300, 2050, 4099),
+])
+def test_w8a8_plan_splits_and_workspace(M, K, N):
+    """Every split of K is whole 64-row stages and none is empty; the split-K
+    counters hold one per output tile of the kernel's grid (16-row tiles up
+    to M = 16, 128-row tiles above, 128 columns), and the int32 sums [M, N]
+    one per output."""
+    large, splits, k_per = tmq._w8a8_plan(M, N, K, 132)
+    assert large == int(M > 16)
+    spans = [(i * k_per, min(K, (i + 1) * k_per)) for i in range(splits)]
+    assert k_per % 64 == 0 and spans[-1][1] == K and all(a < b for a, b in spans)
+    bm = 128 if large else 16
+    grid = (-(-N // 128), splits, -(-M // bm))
+    assert tmq._w8a8_tiles(M, N, large) == grid[0] * grid[2]
+    last_tile = (grid[2] - 1) * grid[0] + (grid[0] - 1)      # blockIdx.z * gridDim.x + x
+    assert last_tile < tmq._w8a8_tiles(M, N, large)
+    if M <= 16:
+        assert splits > 1 or -(-K // 64) == 1 or grid[0] >= 4 * 132
