@@ -81,38 +81,17 @@
 // * Per-channel: one accumulator, scale[N] applied once after the reduction.
 #include <type_traits>
 
-#include "common.cuh"
+#include "mma_bf16.cuh"
 
 namespace {
 
-constexpr int kBKP = 32;                  // packed rows per stage
+constexpr int kBKP = asd::kStageRows;     // packed rows per stage
 constexpr int kXCols = 2 * kBKP;          // x columns a stage: 32 of each half
-constexpr int kPlaneStride = kXCols + 8;  // bf16 a token row of an x plane: 144 bytes
 
-// A block of WM x WN warps; a warp owns NT tiles of 8 tokens and CW output
-// columns (CW / 16 weight tiles). Window tiles (ALL_SPLITS) keep the sum of
-// the finished K splits (`total`) in shared memory, one f32 per output,
-// [element][thread].
-template <typename T, int NT_, int CW_, int WM_, int WN_, int STAGES_, bool ALL_SPLITS_,
-          int MINB_ = 1>
-struct Tile {
-  static constexpr bool kBf16 = sizeof(T) == 2;
-  static constexpr int kMinBlocks = MINB_;  // blocks an SM the registers must allow
-  static constexpr int NT = NT_, CW = CW_, MW = CW_ / 16, WM = WM_, WN = WN_;
-  static constexpr int kStages = STAGES_;
-  static constexpr bool kAllSplits = ALL_SPLITS_;
-  static constexpr int BM = WM * NT * 8, BN = WN * CW;
-  static constexpr int kThreads = WM * WN * 32;
-  static constexpr int kWords = CW / 32;  // 32-bit words a thread reads of each k-row
-  static constexpr int kTerms = kBf16 ? 1 : 3;
-  static constexpr int kQBytes = kBKP * BN;
-  // bf16 x is staged as the B plane itself; f32 x raw, then split into planes
-  static constexpr int kXBytes = kBf16 ? BM * kPlaneStride * 2 : BM * kXCols * 4;
-  static constexpr int kStageBytes = kQBytes + kXBytes;
-  static constexpr int kPlanesBytes = kBf16 ? 0 : 3 * BM * kPlaneStride * 2;
-  static constexpr int kTotalBytes = kAllSplits ? BM * BN * 4 : 0;
-  static constexpr int kSmem = kStages * kStageBytes + kPlanesBytes + kTotalBytes;
-};
+// A block of WM x WN warps, a stage of 32 packed rows and 64 x columns
+// (mma_bf16.cuh MmaTile).
+template <typename T, int NT, int CW, int WM, int WN, int STAGES, bool ALL_SPLITS, int MINB = 1>
+using Tile = asd::MmaTile<T, kXCols, NT, CW, WM, WN, STAGES, ALL_SPLITS, MINB>;
 // Decode: 4 warps of 64 columns (8-byte loads), 8 tokens (M <= 8) or 16,
 // 3 stages, registers capped so that 4 (3) blocks share an SM; a lower cap
 // spills.
@@ -124,41 +103,6 @@ using DecodeTile = Tile<T, NT, 64, 1, 4, 3, false, NT == 1 ? 4 : 3>;
 template <typename T>
 using WindowTile = std::conditional_t<sizeof(T) == 2, Tile<T, 8, 32, 1, 4, 4, true>,
                                       Tile<T, 8, 32, 2, 4, 3, true>>;
-
-// d = a * b + c on the tensor cores
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1, const float (&c)[4]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(c[0]), "f"(c[1]),
-        "f"(c[2]), "f"(c[3]));
-}
-
-// d = a * b + 0: the first MMA of a sum needs no cleared accumulator
-__device__ __forceinline__ void mma_bf16_zero(float (&d)[4], const uint32_t (&a)[4],
-                                              uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "f"(0.f));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[4], const void* p) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(s));
-}
 
 // The low nibbles w, w' of the two 16-bit halves of p (two's complement)
 // -> the bf16 pair (w, w'): with u = w ^ 8 = w + 8 (offset binary),
@@ -186,32 +130,6 @@ __device__ __forceinline__ void a_frag(const uint32_t (&w)[4][NW], int i, uint32
   a[1] = nib2_bf16(__byte_perm(w[0][v], w[1][v], s1)) & keep0;
   a[2] = nib2_bf16(__byte_perm(w[2][v], w[3][v], s0)) & keep1;
   a[3] = nib2_bf16(__byte_perm(w[2][v], w[3][v], s1)) & keep1;
-}
-
-template <int NW>
-__device__ __forceinline__ void lds_words(uint32_t (&w)[NW], const uint8_t* p) {
-  if constexpr (NW == 1) {
-    w[0] = *reinterpret_cast<const uint32_t*>(p);
-  } else if constexpr (NW == 2) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    w[0] = v.x;
-    w[1] = v.y;
-  } else {
-    const uint4 v = *reinterpret_cast<const uint4*>(p);
-    w[0] = v.x;
-    w[1] = v.y;
-    w[2] = v.z;
-    w[3] = v.w;
-  }
-}
-
-// x = hi + mid + lo exactly, each a bf16
-__device__ __forceinline__ void split3(float x, __nv_bfloat16& h, __nv_bfloat16& m,
-                                       __nv_bfloat16& l) {
-  h = __float2bfloat16_rn(x);
-  const float r = x - __bfloat162float(h);
-  m = __float2bfloat16_rn(r);
-  l = __float2bfloat16_rn(r - __bfloat162float(m));
 }
 
 // GMODE 0: per-channel scales; 1: grouped, every 32-row half of a stage in
@@ -259,7 +177,7 @@ int4_matmul_mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
   const int qr = tid / QCH, qch = tid % QCH;
   const int q_gn = nb + qch * 16;
   const int xm = tid / XCH, xh = (tid / CPH) % 2, xc = tid % CPH;
-  const int x_dst = (C::kBf16 ? xm * kPlaneStride : xm * kXCols) + xh * kBKP + xc * E;
+  const int x_dst = (C::kBf16 ? xm * C::kPlaneStride : xm * kXCols) + xh * kBKP + xc * E;
   const T* x_src = x + (size_t)(m0 + xm) * K + xh * Kh + xc * E;
   auto load = [&](int slot, int r0) {
     uint8_t* Qs = smem + slot * C::kStageBytes;
@@ -277,7 +195,7 @@ int4_matmul_mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
       for (int j = 0; j < (C::BM + XRP - 1) / XRP; ++j) {
         if (C::BM < XRP && xm >= C::BM) break;
         const bool ok = m0 + xm + j * XRP < M && r < r_end;
-        asd::cp_async16(Xs + x_dst + j * XRP * (C::kBf16 ? kPlaneStride : kXCols),
+        asd::cp_async16(Xs + x_dst + j * XRP * (C::kBf16 ? C::kPlaneStride : kXCols),
                         ok ? x_src + (size_t)j * XRP * K + r0 : x, ok);
       }
       return;
@@ -293,7 +211,7 @@ int4_matmul_mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
     for (int id = tid; id < C::BM * XCH; id += C::kThreads) {
       const int m = id / XCH, half = (id / CPH) % 2, c = id % CPH;
       const int gm = m0 + m, r = r0 + c * E;
-      T* dst = Xs + (C::kBf16 ? m * kPlaneStride : m * kXCols) + half * kBKP + c * E;
+      T* dst = Xs + (C::kBf16 ? m * C::kPlaneStride : m * kXCols) + half * kBKP + c * E;
       const T* src = x + (size_t)gm * K + half * Kh + r;
 #pragma unroll
       for (int e = 0; e < E; ++e)
@@ -358,36 +276,9 @@ int4_matmul_mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
     for (int i = 0; i < MW; ++i) a_frag<NW>(w, i, keep0, keep1, a[i]);
 #pragma unroll
     for (int p = 0; p < C::kTerms; ++p) {
-      const __nv_bfloat16* plane =
-          C::kBf16 ? reinterpret_cast<const __nv_bfloat16*>(Xs) : planes + p * C::BM * kPlaneStride;
       uint32_t b[NT][2];
-#pragma unroll
-      for (int n = 0; n < NT; n += 2) {
-        // matrices (tile n, k 0-7), (n, k 8-15), (n + 1, k 0-7), (n + 1, k 8-15)
-        const int mi = lane / 8;
-        const int tok = (wm * NT + n + mi / 2) * 8 + lane % 8;
-        const __nv_bfloat16* src =
-            plane + tok * kPlaneStride + h * kBKP + ks * 16 + (mi % 2) * 8;
-        uint32_t r[4];
-        if (n + 1 < NT) {
-          ldmatrix_x4(r, src);
-          b[min(n + 1, NT - 1)][0] = r[2];
-          b[min(n + 1, NT - 1)][1] = r[3];
-        } else {
-          ldmatrix_x2(r, src);  // lanes 0-15 give the addresses
-        }
-        b[n][0] = r[0];
-        b[n][1] = r[1];
-      }
-#pragma unroll
-      for (int i = 0; i < MW; ++i)
-#pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          if (fresh && p == 0)
-            mma_bf16_zero(t[i][n], a[i], b[n][0], b[n][1]);
-          else
-            mma_bf16(t[i][n], a[i], b[n][0], b[n][1], t[i][n]);
-        }
+      asd::b_frags<C>(asd::x_plane<C>(Xs, planes, p), wm, lane, h * kBKP + ks * 16, b);
+      asd::mma_tiles<C>(t, a, b, fresh && p == 0);
     }
   };
 
@@ -408,47 +299,14 @@ int4_matmul_mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
     const uint8_t* Qs = smem + slot * C::kStageBytes;
     slot = slot == S - 1 ? 0 : slot + 1;
     const uint8_t* Xs = Qs + C::kQBytes;
-    if constexpr (!C::kBf16) {
-      // split the staged f32 tile into the three bf16 planes
-      const float* raw = reinterpret_cast<const float*>(Xs);
-      for (int i = tid; i < C::BM * kXCols / 4; i += C::kThreads) {
-        const int m = i / (kXCols / 4), c = (i % (kXCols / 4)) * 4;
-        const float4 v = *reinterpret_cast<const float4*>(raw + m * kXCols + c);
-        const float vs[4] = {v.x, v.y, v.z, v.w};
-        uint32_t packed[3][2] = {{0u, 0u}, {0u, 0u}, {0u, 0u}};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          __nv_bfloat16 hml[3];
-          split3(vs[e], hml[0], hml[1], hml[2]);
-#pragma unroll
-          for (int p = 0; p < 3; ++p)
-            packed[p][e / 2] |= (uint32_t)__bfloat16_as_ushort(hml[p]) << (16 * (e % 2));
-        }
-#pragma unroll
-        for (int p = 0; p < 3; ++p)
-          *reinterpret_cast<uint2*>(planes + p * C::BM * kPlaneStride + m * kPlaneStride + c) =
-              make_uint2(packed[p][0], packed[p][1]);
-      }
+    if constexpr (!C::kBf16) {  // split the staged f32 tile into the three bf16 planes
+      asd::split_planes<C>(reinterpret_cast<const float*>(Xs), planes, tid);
       __syncthreads();
     }
 
     const int r0 = r_begin + it * kBKP;
-    // the thread's words of its four k-rows of both k-steps: 16-byte chunk
-    // (wn * CW + g * CW / 8) / 16 of the row, XOR (t % 4) * 2 (the swizzle of
-    // rows 2t, 2t + 1, 2t + 8 and 2t + 9), plus the offset in the chunk
     uint32_t w[2][4][NW];
-    {
-      const int off = wn * C::CW + g * (C::CW / 8);
-      const int byte = (((off / 16) ^ (tig << 1)) * 16) + off % 16;
-#pragma unroll
-      for (int ks = 0; ks < kBKP / 16; ++ks) {
-        const int r = ks * 16 + 2 * tig;
-        lds_words<NW>(w[ks][0], Qs + r * C::BN + byte);
-        lds_words<NW>(w[ks][1], Qs + (r + 1) * C::BN + byte);
-        lds_words<NW>(w[ks][2], Qs + (r + 8) * C::BN + byte);
-        lds_words<NW>(w[ks][3], Qs + (r + 9) * C::BN + byte);
-      }
-    }
+    asd::stage_words<C>(Qs, wn, g, tig, w);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {  // the low nibbles' rows, then the high nibbles'
       if (h == 1) {

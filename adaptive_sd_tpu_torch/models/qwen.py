@@ -32,9 +32,21 @@ Params = dict[str, Any]
 # building blocks
 
 
+# PyTorch's CUDA row reduction sums a row in another order when it reduces
+# fewer than 16 rows (measured on an H100): on the card the mean of squares of
+# fewer rows is taken over 16 zero-padded rows, so that a row gets the same
+# bits in a decode step (a few lanes) and in a verify window (hundreds).
+_NORM_MIN_ROWS = 16
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     x32 = x.float()
-    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    n = x32.numel() // x32.shape[-1]
+    if x32.is_cuda and 0 < n < _NORM_MIN_ROWS:
+        rows = F.pad(x32.reshape(n, -1), (0, 0, 0, _NORM_MIN_ROWS - n))
+        var = (rows * rows).mean(dim=-1, keepdim=True)[:n].view(*x32.shape[:-1], 1)
+    else:
+        var = (x32 * x32).mean(dim=-1, keepdim=True)
     return (x32 * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 

@@ -26,13 +26,13 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # kernel name -> (source, C symbol, argtypes)
 KERNELS = {
-    "int8_matmul": ("matmul_int8.cu", "asd_int8_matmul", [_P] * 5 + [_I] * 7 + [_P]),
+    "int8_matmul": ("matmul_int8.cu", "asd_int8_matmul", [_P] * 6 + [_I] * 7 + [_P]),
     "int4_matmul": ("matmul_int4.cu", "asd_int4_matmul", [_P] * 5 + [_I] * 9 + [_P]),
     "w8a8_matmul": ("matmul_w8a8.cu", "asd_w8a8_matmul", [_P] * 8 + [_I] * 9 + [_P]),
-    "paged_decode": ("paged_decode.cu", "asd_paged_decode", [_P] * 8 + [_I] * 7 + [_F, _I, _P]),
+    "paged_decode": ("paged_decode.cu", "asd_paged_decode", [_P] * 10 + [_I] * 7 + [_F, _I, _P]),
     "paged_window": ("paged_window.cu", "asd_paged_window", [_P] * 9 + [_I] * 8 + [_F, _I, _P]),
 }
-_HEADERS = ("common.cuh", "paged_attention.cuh")
+_HEADERS = ("common.cuh", "mma_bf16.cuh", "paged_attention.cuh")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -146,3 +146,23 @@ def stream_of(t) -> int:
     import torch
 
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+_tile_counters: dict = {}
+
+
+def tile_counters(t, stream: int, n: int):
+    """A zeroed int32 buffer of at least ``n`` tile counters for kernels that
+    ``stream`` (``stream_of(t)``) runs on ``t``'s device. The split kernels
+    (INT8 matmul, paged decode) find a tile's last block with such a counter
+    and that block returns it to 0, so every launch leaves the buffer zero:
+    it is zeroed once, and each stream has its own, so no memset runs per
+    call and concurrent streams never share a counter."""
+    import torch
+
+    key = (t.device.index, stream)
+    buf = _tile_counters.get(key)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=t.device)
+        _tile_counters[key] = buf
+    return buf

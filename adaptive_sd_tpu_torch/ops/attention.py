@@ -10,7 +10,10 @@
   :func:`paged_window_attention` (a window of query positions over the cached
   prefix) launch the hand-written Hopper kernels ``csrc/paged_decode.cu`` and
   ``csrc/paged_window.cu`` for CUDA tensors and take their plain versions
-  (``*_ref``) for CPU tensors.
+  (``*_ref``) for CPU tensors. Both kernels cut a sequence's pages into
+  splits of :data:`PAGES_PER_SPLIT` pages (:func:`decode_splits`) and merge
+  the splits' partial softmaxes in split order, so a query row gets the same
+  bits from either kernel.
 * :func:`prefill_attention` is the counterpart of ``jax.nn.dot_product_attention``
   (XLA's op, not a Pallas kernel) and calls
   ``torch.nn.functional.scaled_dot_product_attention``.
@@ -28,7 +31,21 @@ NEG_INF = -1e30
 paged_decode_counter = _kernels.LaunchCounter()
 paged_window_counter = _kernels.LaunchCounter()
 
-_DECODE_MAX_G = 8  # csrc/paged_decode.cu kDecodeRows
+_DECODE_MAX_G = 8  # the decode kernel's largest query group (Qwen2.5-72B)
+# Pages of a split, as csrc/paged_attention.cuh kPagesPerSplit: one page of
+# 128 tokens a block, chosen by measurement (PERF.md). The decode workspace is
+# sized for a split a page, so it holds the splits of any split size.
+PAGES_PER_SPLIT = 1
+
+
+def decode_splits(ctx_len: int, max_pages: int, page: int) -> list[tuple[int, int]]:
+    """The splits a sequence's pages are cut into, as [first, end) page
+    ranges of its block table: the pages below ``ctx_len`` (within the table)
+    in runs of PAGES_PER_SPLIT, at fixed boundaries whatever the batch,
+    lengths or kernel. The decode kernel runs one block per split and merges
+    them in this order; the window kernel walks them in this order."""
+    n_used = min(-(-ctx_len // page), max_pages) if ctx_len > 0 else 0
+    return [(s, min(s + PAGES_PER_SPLIT, n_used)) for s in range(0, n_used, PAGES_PER_SPLIT)]
 
 
 def _gather_pages(pages, scales, block_tables):
@@ -95,6 +112,8 @@ def _check_paged(q, k_pages, k_scales, v_pages, v_scales, block_tables, *lens):
     D = q.shape[-1]
     if D % 16 or D > 128:
         raise ValueError(f"head_dim must be a multiple of 16 and <= 128, got {D}")
+    if k_pages.shape[2] % 4:
+        raise ValueError(f"page size must be a multiple of 4, got {k_pages.shape[2]}")
 
 
 def paged_attention(
@@ -108,7 +127,11 @@ def paged_attention(
     *,
     sm_scale: float,
 ) -> torch.Tensor:
-    """Flash decode attention over paged INT8 KV. Returns [B, n_kv, G, D]."""
+    """Flash decode attention over paged INT8 KV. Returns [B, n_kv, G, D].
+    On CUDA one launch: a block per (split, kv head, sequence), the last
+    block of each (sequence, kv head) merging the splits' partials, which go
+    through a workspace allocated here for this call (the tile counters are
+    the stream's, :func:`_kernels.tile_counters`)."""
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, k_scales, v_pages, v_scales,
                                    block_tables, seq_lens, sm_scale=sm_scale)
@@ -118,12 +141,21 @@ def paged_attention(
     _, n_pages, page, _ = k_pages.shape
     if G > _DECODE_MAX_G:
         raise ValueError(f"decode kernel takes at most {_DECODE_MAX_G} query heads per kv head")
+    max_pages = block_tables.shape[1]
     out = torch.empty_like(q)
+    stream = _kernels.stream_of(q)
+    ws = counters = None
+    if max_pages > 1:  # the splits' partials (acc, m, l), per-(b, h) counters
+        ws = torch.empty(B * n_kv * max_pages * G * (D + 2), dtype=torch.float32,
+                         device=q.device)
+        counters = _kernels.tile_counters(q, stream, B * n_kv)
     rc = _kernels.function("paged_decode")(
         q.data_ptr(), k_pages.data_ptr(), k_scales.data_ptr(), v_pages.data_ptr(),
         v_scales.data_ptr(), block_tables.data_ptr(), seq_lens.data_ptr(), out.data_ptr(),
-        B, n_kv, G, D, n_pages, page, block_tables.shape[1], float(sm_scale),
-        int(q.dtype == torch.bfloat16), _kernels.stream_of(q),
+        ws.data_ptr() if ws is not None else None,
+        counters.data_ptr() if counters is not None else None,
+        B, n_kv, G, D, n_pages, page, max_pages, float(sm_scale),
+        int(q.dtype == torch.bfloat16), stream,
     )
     _kernels.check(rc, "paged decode attention")
     paged_decode_counter.launches += 1

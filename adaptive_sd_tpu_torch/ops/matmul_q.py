@@ -5,11 +5,12 @@ applied after the reduction. Dispatch mirrors the JAX wrapper
 (``matmul_q.py:239``):
 
 * CPU tensors take the plain version, :func:`quantized_matmul_ref`.
-* CUDA, INT8, ``M >= 512`` (prefill): ``torch.matmul`` on the dequantized
-  weight, as JAX hands that case to XLA outside any Pallas kernel.
-* CUDA, INT8, ``M < 512`` (decode, short windows): the hand-written Hopper
-  kernel ``csrc/matmul_int8.cu``, whatever N and K are (it masks ragged
-  edges).
+* CUDA, INT8: the hand-written Hopper kernel ``csrc/matmul_int8.cu`` at
+  every M, whatever N and K are (it masks ragged edges), as INT4. JAX hands
+  ``M >= 512`` to XLA outside any Pallas kernel; the port keeps the kernel
+  there, since one kernel gives a row the same bits in decode, verify and
+  prefill, which greedy self-verify needs (``chip_smoke.py`` times
+  ``torch.matmul`` on the dequantized weight beside it).
 * CUDA, INT4 (per-channel ``scale [N]`` or grouped ``scale [K/gs, N]``): the
   hand-written Hopper kernel ``csrc/matmul_int4.cu`` at every M, as the JAX
   wrapper keeps INT4 in its Pallas kernels at every M. It launches or raises;
@@ -32,9 +33,14 @@ import torch
 from . import _kernels
 from .quant import QuantizedTensor, unpack_int4
 
-BM_CAP = 512  # M at and above which INT8 goes to torch.matmul (prefill)
-_BN = 128     # output columns per kernel block (csrc/matmul_int8.cu kBN)
-_KTILE = 128  # k-rows per kernel step (csrc/matmul_int8.cu kKTile)
+_INT8_SMALL_M = 16  # M up to which INT8 takes decode tiles (8 or 16 tokens) with a K split
+_INT8_BN = 256      # output columns of a decode tile (csrc/matmul_int8.cu)
+_INT8_KUNIT = 128   # unit of an INT8 K split in rows (whole 32-row kernel stages)
+# Decode blocks an SM the INT8 K split aims at: few for shapes of few column
+# blocks (qkv, o, down), many for wide ones (gateup, lm_head), whose one or
+# two waves of blocks otherwise end in a ragged last wave (measured, PERF.md)
+_INT8_BLOCKS_PER_SM = (2, 16)
+_BN = 128           # the INT4 plan's column unit
 
 
 _INT4_SMALL_M = 16  # M up to which INT4 takes decode tiles (8 or 16 tokens) with a K split
@@ -67,27 +73,27 @@ def quantized_matmul_ref(
     return (acc * scale[None, :].float()).to(out_dtype)
 
 
-def _matmul_dequant(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, out_dtype):
-    """Large-M INT8 on CUDA: one ``torch.matmul`` in x's type on the
-    dequantized-to-x.dtype weight, then the scale (the JAX wrapper leaves
-    this case to XLA)."""
-    acc = torch.matmul(x, q.to(x.dtype)).float()
-    return (acc * scale[None, :]).to(out_dtype)
-
-
-def _split_k(M: int, N: int, K: int, n_sm: int) -> tuple[int, int]:
-    """(splits, k_per_split): split K across blocks until about four blocks
-    per SM are in flight (decode's N/128 column blocks alone leave SMs idle)."""
-    bm = 1 if M <= 1 else 2 if M <= 2 else 4 if M <= 4 else 8
-    blocks = math.ceil(N / _BN) * math.ceil(M / bm)
-    splits = max(1, min(math.ceil(4 * n_sm / blocks), math.ceil(K / _KTILE)))
-    k_per = math.ceil(math.ceil(K / splits) / _KTILE) * _KTILE
+def _int8_plan(N: int, K: int, n_sm: int) -> tuple[int, int]:
+    """(splits, k_per_split) for the INT8 kernel: K split until the N / 256
+    column blocks of a decode tile put about _INT8_BLOCKS_PER_SM blocks on
+    each SM (the first value where the column blocks are fewer than half the
+    SMs, else the second), every split a multiple of 128 rows (whole kernel
+    stages). The split depends on N and K only, not on M: decode tiles
+    (M <= 16) run one split a block and their last block adds the splits'
+    sums in order; window tiles run the splits in turn and add them in the
+    same order, so a row's result is the same at every M."""
+    blocks = math.ceil(N / _INT8_BN)
+    per_sm = _INT8_BLOCKS_PER_SM[blocks >= n_sm / 2]
+    splits = max(1, min(math.ceil(per_sm * n_sm / blocks), math.ceil(K / _INT8_KUNIT)))
+    k_per = math.ceil(math.ceil(K / splits) / _INT8_KUNIT) * _INT8_KUNIT
     return math.ceil(K / k_per), k_per
 
 
 def int8_matmul_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Launch the Hopper INT8 kernel: x [M, K] bf16/f32 CUDA, q [K, N] int8,
-    scale [N] f32 -> [M, N] in x.dtype."""
+    scale [N] f32 -> [M, N] in x.dtype. Decode tiles with K split across
+    blocks sum the splits through a workspace allocated here for this call
+    (the tile counters are the stream's, :func:`_kernels.tile_counters`)."""
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"int8 matmul kernel takes bf16/f32 x, got {x.dtype}")
     if q.dtype != torch.int8 or scale.dtype != torch.float32:
@@ -97,18 +103,27 @@ def int8_matmul_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> t
     x, q, scale = x.contiguous(), q.contiguous(), scale.contiguous()
     M, K = x.shape
     N = q.shape[1]
+    if q.shape[0] != K or scale.shape != (N,):
+        raise ValueError(f"shapes do not fit: x {tuple(x.shape)}, q {tuple(q.shape)}, "
+                         f"scale {tuple(scale.shape)}")
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if M == 0:
         return out
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    splits, k_per = _split_k(M, N, K, n_sm)
-    partial = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-               if splits > 1 else None)
-    vec = int(N % 16 == 0 and q.data_ptr() % 16 == 0)
+    splits, k_per = _int8_plan(N, K, n_sm)
+    stream = _kernels.stream_of(x)
+    partial = counters = None
+    if splits > 1 and M <= _INT8_SMALL_M:
+        partial = torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+        counters = _kernels.tile_counters(x, stream, math.ceil(N / _INT8_BN))
+    # 16-byte copies of q rows and x rows
+    vec = int(N % 16 == 0 and q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0
+              and (K * x.element_size()) % 16 == 0)
     rc = _kernels.function("int8_matmul")(
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
         partial.data_ptr() if partial is not None else None,
-        M, N, K, splits, k_per, int(x.dtype == torch.bfloat16), vec, _kernels.stream_of(x),
+        counters.data_ptr() if counters is not None else None,
+        M, N, K, splits, k_per, int(x.dtype == torch.bfloat16), vec, stream,
     )
     _kernels.check(rc, "int8 matmul")
     int8_matmul_counter.launched(M, K, N, 0, x.dtype)
@@ -208,8 +223,6 @@ def quantized_matmul(
         return quantized_matmul_ref(x, q, scale, bits=bits, out_dtype=out_dtype)
     if bits == 4:
         return int4_matmul_cuda(x, q, scale).to(out_dtype)
-    if M >= BM_CAP:
-        return _matmul_dequant(x, q, scale, out_dtype)
     return int8_matmul_cuda(x, q, scale).to(out_dtype)
 
 

@@ -8,7 +8,10 @@ Phases, one JSON line each; any failure exits non-zero:
 1. build: compile every kernel from ``adaptive_sd_tpu_torch/csrc`` (one nvcc
    per source, in parallel).
 2. kernels: each hand-written kernel against its plain PyTorch version on the
-   card, at the paths' real shapes (Qwen2.5-7B, 14B and 32B), with times:
+   card, at the paths' real shapes (Qwen2.5-7B, 14B and 32B; INT8 also at
+   verify-window and prefill M, beside torch.matmul on the dequantised
+   weight; paged decode also at the scheduler's 8 lanes and at one lane of
+   4100 tokens), with times:
    kernel, plain version, one PyTorch library call where one computes the
    same function, and the bound (bytes over the card's memory rate or
    operations over its peak, whichever is larger).
@@ -24,7 +27,9 @@ Phases, one JSON line each; any failure exits non-zero:
    INT8 weights and KV: Qwen2.5-7B (bf16 activations) ``generate``s drafts for
    four prompts, Qwen2.5-14B (f32 activations, prefix cache on)
    ``verify_continue``s them, then verifies its own greedy output, which
-   it must accept in full, and a repeated prompt must hit the prefix cache.
+   it must accept in full, and a repeated prompt must hit the prefix cache;
+   a bf16 copy of the 14B tier over the same INT8 weights must accept its
+   own greedy output in full too.
    scheduler: ``ContinuousBatchingScheduler`` over a W8A8 (``act_quant``)
    engine on the 7B tier's INT8 weights, 28 layers, 8 lanes, 8-step scans:
    twelve requests in two waves, then the same under KV-page pressure with
@@ -114,10 +119,11 @@ PROMPT_LENS = (37, 150, 300, 513)  # cross page boundaries at page 128
 PAGE = 128
 N_PAGES = 512
 # Activation dtype per tier. Tier 0 drafts in bf16, the serving dtype. Tier 1
-# runs f32 activations (weights and KV stay INT8): its self-verify must accept
-# its own greedy output in full, and in bf16 the decode and window paths round
-# differently enough over 48 layers to flip near-tied argmaxes of random
-# weights (measured: 3 of 4 requests diverged within 32 tokens).
+# runs f32 activations (weights and KV stay INT8); it and a bf16 copy over the
+# same INT8 weights must each accept their own greedy output in full, which
+# holds in bf16 only because decode steps and verify windows sum every row
+# in one order (the INT8 kernel at every M it takes, the paged kernels over
+# the same page splits).
 TIER_DTYPES = (torch.bfloat16, torch.float32)
 # Activation type of the pipeline's INT4 tiers (14B, 32B). Their decode steps
 # and verify windows sum every output in one order, so bf16 accepts its own
@@ -154,6 +160,14 @@ SCHED_PROMPT_LENS = (40, 110, 500, 230, 360, 75, 490, 240, 120, 370, 100, 450)
 # W8A8 rows in the kernels phase: decode lanes, then verify/admission windows
 W8A8_M_SMALL = (1, 4, 8)
 W8A8_M_WINDOWS = (192, 576, 2304)
+# INT8 rows in the kernels phase beyond decode: verify windows, then prefill
+# M (512 and above), where torch.matmul on the dequantised weight is timed
+# beside the kernel
+INT8_M_WINDOWS = (32, 192, 512, 576, 2304)
+# Paged decode rows besides the two table shapes: the scheduler's 8 lanes
+# (contexts 40-660), and one lane at 4100 tokens (33 pages, as many splits)
+SCHED_DECODE_LENS = (40, 128, 129, 250, 380, 500, 640, 660)
+LONG_DECODE_LENS = (4100, 37, 300, 1)
 
 # Published rates of the card by name (NVIDIA data sheets, dense, at the full
 # power limit): memory bytes/s, then operations/s for bf16 and int8 (tensor
@@ -238,7 +252,11 @@ def bound_ms(nbytes: float, ops: float, dtype, rates) -> tuple[float, str]:
 class Timer:
     """CUDA-event time of one call, averaged over ``reps`` calls, each after
     writing a buffer larger than L2 so the call starts cold, as on the
-    decode path where every layer's weights come from HBM."""
+    decode path where every layer's weights come from HBM. The card then
+    spins for ~1 ms before the start event, so that the host has enqueued
+    the call before the card reaches it: the time is the card's, not the
+    host's enqueue (a shared host's stalls otherwise showed in small calls,
+    and a 0.1 ms spin was not always enough)."""
 
     def __init__(self, device, reps: int = 20):
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device=device)
@@ -251,6 +269,7 @@ class Timer:
         total = 0.0
         for _ in range(reps):
             self.flush.zero_()
+            torch.cuda._sleep(2_000_000)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -300,7 +319,7 @@ def phase_kernels(dev, rates, timer) -> dict:
     results = {k: [] for k in _KERNELS}
 
     def check(kernel, shape, dtype, out, ref, tol, nbytes, ops, fn_k, fn_p, fn_lib=None,
-              valid=None, reps=None, ops_dtype=None):
+              valid=None, reps=None, ops_dtype=None, variant="", fn_dequant=None):
         diff = (out.float() - ref.float()).abs()
         lim = tol["atol"] + tol["rtol"] * ref.float().abs()
         if valid is not None:
@@ -310,34 +329,53 @@ def phase_kernels(dev, rates, timer) -> dict:
             fail(f"{kernel} {shape}: kernel disagrees with its plain version "
                  f"(max abs err {err}, tol {tol})")
         b_ms, b_by = bound_ms(nbytes, ops, ops_dtype or dtype, rates)
-        row = {"kernel": kernel, "shape": shape, "dtype": str(dtype), "max_abs_err": err,
-               "tol": tol, "kernel_ms": timer(fn_k, reps), "plain_ms": timer(fn_p, reps),
+        row = {"kernel": kernel, "variant": variant, "shape": shape, "dtype": str(dtype),
+               "max_abs_err": err, "tol": tol, "kernel_ms": timer(fn_k, reps),
+               "plain_ms": timer(fn_p, reps),
                "library_ms": timer(fn_lib, reps) if fn_lib else None,
                "bound_ms": b_ms, "bound_by": b_by}
+        if fn_dequant is not None:  # the torch.matmul route INT8 took at M >= 512
+            row["dequant_ms"] = timer(fn_dequant, reps)
         row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
         results[kernel].append(row)
         emit({"phase": "kernels", **row})
 
-    # INT8 weight-only matmul: every projection at decode M = 1 and 4 lanes
-    for (model, dtype), M in itertools.product(zip(DEFAULT_CASCADE[:2], TIER_DTYPES), M_DECODES):
-        s = get_spec(model)
-        H, D, F = s.hidden, s.head_dim, s.ffn
+    def proj_shapes(s):
+        return {"qkv": (s.hidden, (s.n_heads + 2 * s.n_kv_heads) * s.head_dim),
+                "o": (s.n_heads * s.head_dim, s.hidden), "gateup": (s.hidden, 2 * s.ffn),
+                "down": (s.ffn, s.hidden), "lm_head": (s.hidden, s.vocab_size)}
+
+    # INT8 weight-only matmul (csrc/matmul_int8.cu): every projection at
+    # decode M = 1 and 4 lanes; the layer's four projections at verify
+    # windows and at prefill M, where torch.matmul on the dequantised weight
+    # (the JAX package's route at M >= 512) is timed beside the kernel. Bound:
+    # bytes, or operations at the bf16 tensor-core peak for both types.
+    # Library yardstick: torch._weight_int8pack_mm at every M (the
+    # dequantised torch.matmul is a row's own column, dequant_ms).
+    def int8_case(label, M, K, N, dtype, variant, reps=None):
         esize = torch.empty((), dtype=dtype).element_size()
-        shapes = {"qkv": (H, (s.n_heads + 2 * s.n_kv_heads) * D), "o": (s.n_heads * D, H),
-                  "gateup": (H, 2 * F), "down": (F, H), "lm_head": (H, s.vocab_size)}
-        for proj, (K, N) in shapes.items():
-            q = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
-            scale = (1.0 + 0.1 * torch.rand(N, generator=g, device=dev)) / (64 * math.sqrt(K))
-            x = torch.randn(M, K, generator=g, device=dev).to(dtype)
-            out = MQ.int8_matmul_cuda(x, q, scale)
-            ref = MQ.quantized_matmul_ref(x, q, scale)
-            check("int8_matmul", f"{model}:{proj} M={M} K={K} N={N}", dtype, out, ref,
-                  MM_TOL[dtype], nbytes=M * K * esize + K * N + N * 4 + M * N * esize,
-                  ops=2 * M * N * K,
-                  fn_k=lambda: MQ.int8_matmul_cuda(x, q, scale),
-                  fn_p=lambda: MQ.quantized_matmul_ref(x, q, scale),
-                  fn_lib=_int8pack_call(x, q, scale))
-            del q, x
+        q = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+        scale = (1.0 + 0.1 * torch.rand(N, generator=g, device=dev)) / (64 * math.sqrt(K))
+        x = torch.randn(M, K, generator=g, device=dev).to(dtype)
+        out = MQ.int8_matmul_cuda(x, q, scale)
+        ref = MQ.quantized_matmul_ref(x, q, scale)
+        check("int8_matmul", f"{label} M={M} K={K} N={N}", dtype, out, ref, MM_TOL[dtype],
+              nbytes=M * K * esize + K * N + N * 4 + M * N * esize, ops=2 * M * N * K,
+              fn_k=lambda: MQ.int8_matmul_cuda(x, q, scale),
+              fn_p=lambda: MQ.quantized_matmul_ref(x, q, scale),
+              fn_lib=_int8pack_call(x, q, scale), reps=reps,
+              ops_dtype=torch.bfloat16,
+              variant=variant,
+              fn_dequant=(lambda: _dequant_call(x, q, scale)) if M >= 512 else None)
+        del q, x, out, ref
+        torch.cuda.empty_cache()
+
+    for model, dtype in zip(DEFAULT_CASCADE[:2], TIER_DTYPES):
+        shapes = proj_shapes(get_spec(model))
+        for M, (proj, (K, N)) in itertools.product(M_DECODES, shapes.items()):
+            int8_case(f"{model}:{proj}", M, K, N, dtype, f"decode M={M}")
+        for M, proj in itertools.product(INT8_M_WINDOWS, ("qkv", "o", "gateup", "down")):
+            int8_case(f"{model}:{proj}", M, *shapes[proj], dtype, f"window M={M}", reps=3)
 
     # W8A8 (csrc/matmul_w8a8.cu): the five Qwen2.5-7B projections at the
     # scheduler's decode lanes and at admission/verify windows, both types,
@@ -356,7 +394,8 @@ def phase_kernels(dev, rates, timer) -> dict:
               nbytes=M * K * esize + K * N + N * 4 + M * N * esize, ops=2 * M * N * K,
               fn_k=lambda: MQ.int8x8_matmul_cuda(x, q, scale),
               fn_p=lambda: MQ.quantized_matmul_w8a8_ref(x, q, scale),
-              fn_lib=_int_mm_call(x, q, scale), reps=reps, ops_dtype=torch.int8)
+              fn_lib=_int_mm_call(x, q, scale), reps=reps, ops_dtype=torch.int8,
+              variant=_variant(label, M))
         del q, x, out, ref
         torch.cuda.empty_cache()
 
@@ -395,14 +434,10 @@ def phase_kernels(dev, rates, timer) -> dict:
               ops=2 * M * N * K,
               fn_k=lambda: MQ.int4_matmul_cuda(x, q, scale),
               fn_p=lambda: MQ.quantized_matmul_ref(x, q, scale, bits=4),
-              fn_lib=_int4pack_call(x, q, scale, gs), reps=reps, ops_dtype=torch.bfloat16)
+              fn_lib=_int4pack_call(x, q, scale, gs), reps=reps, ops_dtype=torch.bfloat16,
+              variant=_variant(label, M))
         del q, x, out, ref
         torch.cuda.empty_cache()
-
-    def proj_shapes(s):
-        return {"qkv": (s.hidden, (s.n_heads + 2 * s.n_kv_heads) * s.head_dim),
-                "o": (s.n_heads * s.head_dim, s.hidden), "gateup": (s.hidden, 2 * s.ffn),
-                "down": (s.ffn, s.hidden), "lm_head": (s.hidden, s.vocab_size)}
 
     for dtype in (torch.bfloat16, torch.float32):
         # grouped: every projection of the 14B and 32B tiers at the decode
@@ -444,26 +479,38 @@ def phase_kernels(dev, rates, timer) -> dict:
                            dtype=torch.int8)
         ks = torch.rand(n_kv, N_PAGES, 1, PAGE, generator=g, device=dev) * 0.02 + 1e-3
         vs = torch.rand(n_kv, N_PAGES, 1, PAGE, generator=g, device=dev) * 0.02 + 1e-3
-        maxp = 10
-        perm = torch.randperm(N_PAGES, generator=g, device=dev)[: 3 * maxp].to(torch.int32)
-        tables = torch.cat([perm.view(3, maxp),
-                            torch.full((1, maxp), N_PAGES, dtype=torch.int32, device=dev)])
         sm = D ** -0.5
         token_bytes = n_kv * (2 * D + 2 * 4)  # K and V int8 rows plus their f32 scales
 
-        # decode: one token per lane; lane 3 parked on the sentinel page
-        lens = torch.tensor([37, 300, 1000, 1], dtype=torch.int32, device=dev)
-        qd = torch.randn(4, n_kv, G, D, generator=g, device=dev).to(dtype)
-        args = (qd, kp, ks, vp, vs, tables, lens)
-        out = A.paged_attention(*args, sm_scale=sm)
-        ref = A.paged_attention_ref(*args, sm_scale=sm)
-        L = [int(v) for v in lens.tolist()]
-        nbytes = 2 * qd.numel() * esize + tables.numel() * 4 + 16 + token_bytes * sum(L)
-        ops = sum(n_kv * G * 4 * D * n for n in L)
-        check("paged_decode", f"{model}: B=4 n_kv={n_kv} G={G} D={D} lens={L}", dtype, out,
-              ref, attn_tol[dtype], nbytes=nbytes, ops=ops,
-              fn_k=lambda: A.paged_attention(*args, sm_scale=sm),
-              fn_p=lambda: A.paged_attention_ref(*args, sm_scale=sm))
+        def tables_for(lens, maxp):
+            """Random distinct pages for every lane but a parked one (len 1 at
+            the end of the table shape), which sits on the sentinel page."""
+            n = len(lens) - (lens[-1] == 1)
+            perm = torch.randperm(N_PAGES, generator=g, device=dev)[: n * maxp].to(torch.int32)
+            park = torch.full((len(lens) - n, maxp), N_PAGES, dtype=torch.int32, device=dev)
+            return torch.cat([perm.view(n, maxp), park])
+
+        # decode: one token per lane; a lane of length 1 parked on the sentinel page
+        def decode_case(lens, maxp, variant):
+            tables = tables_for(lens, maxp)
+            lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+            qd = torch.randn(len(lens), n_kv, G, D, generator=g, device=dev).to(dtype)
+            args = (qd, kp, ks, vp, vs, tables, lens_t)
+            out = A.paged_attention(*args, sm_scale=sm)
+            ref = A.paged_attention_ref(*args, sm_scale=sm)
+            L = list(lens)
+            nbytes = 2 * qd.numel() * esize + tables.numel() * 4 + 4 * len(L) + token_bytes * sum(L)
+            ops = sum(n_kv * G * 4 * D * n for n in L)
+            check("paged_decode", f"{model}: B={len(L)} n_kv={n_kv} G={G} D={D} lens={L}", dtype,
+                  out, ref, attn_tol[dtype], nbytes=nbytes, ops=ops,
+                  fn_k=lambda: A.paged_attention(*args, sm_scale=sm),
+                  fn_p=lambda: A.paged_attention_ref(*args, sm_scale=sm), variant=variant)
+            return tables
+
+        maxp = 10
+        tables = decode_case((37, 300, 1000, 1), maxp, "table")
+        decode_case(SCHED_DECODE_LENS, SCHED_CONTEXT // PAGE, "scheduler 8 lanes")
+        decode_case(LONG_DECODE_LENS, -(-LONG_DECODE_LENS[0] // PAGE), "long context")
 
         # window: verify-sized windows over cached prefixes; lane 3 parked
         W = 64
@@ -485,10 +532,43 @@ def phase_kernels(dev, rates, timer) -> dict:
               f"win={wins}", dtype, out, ref, attn_tol[dtype], nbytes=nbytes, ops=ops,
               fn_k=lambda: A.paged_window_attention(*wargs, group=G, sm_scale=sm),
               fn_p=lambda: A.paged_window_attention_ref(*wargs, group=G, sm_scale=sm),
-              valid=valid)
+              valid=valid, variant="table")
         del kp, vp, ks, vs
     torch.cuda.empty_cache()
+    emit({"phase": "kernel_variants", "rows": _variants(results)})
     return results
+
+
+def _variant(label: str, M: int) -> str:
+    """A matmul row's variant: decode (M <= 16) or window, by M; ragged
+    shapes apart."""
+    return "ragged" if label == "ragged" else f"{'decode' if M <= 16 else 'window'} M={M}"
+
+
+def _variants(results: dict) -> list:
+    """Kernel rows summed by (kernel, variant, type): the times PERF.md's
+    kernel table gives, each over the shapes of its variant."""
+    groups = {}
+    for kernel, rows in results.items():
+        for r in rows:
+            groups.setdefault((kernel, r["variant"], r["dtype"]), []).append(r)
+    out = []
+    for (kernel, variant, dtype), rows in groups.items():
+        row = {"kernel": kernel, "variant": variant, "dtype": dtype, "shapes": len(rows)}
+        for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "dequant_ms"):
+            vals = [r.get(key) for r in rows]
+            row[key] = None if any(v is None for v in vals) else float(sum(vals))
+        row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
+        row["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+        out.append(row)
+    return out
+
+
+def _dequant_call(x, q, scale):
+    """INT8 at prefill M the way the JAX package takes it (XLA outside any
+    kernel, ``M >= 512``): one torch.matmul in x's type on the weight
+    dequantised for the call, the kernel's yardstick there."""
+    return (torch.matmul(x, q.to(x.dtype)).float() * scale[None, :]).to(x.dtype)
 
 
 def _int8pack_call(x, q, scale):
@@ -916,6 +996,12 @@ def phase_serve(dev) -> dict:
                          [o.token_ids.tolist() for o in own], max_new=MAX_NEW)
     record("tier1.verify_continue(own output)", tier1, [o for o, _ in self_ver], dt)
     launches = read_counters()
+    # the same INT8 weights with bf16 activations: decode steps and verify
+    # windows sum every row in one order, so bf16 accepts its own output too
+    twin = _twin(tier1, torch.bfloat16, n_pages=N_PAGES // 4)
+    bf16_row = _self_verify(twin, prompts, f"{tier1.spec.name} int8 bf16 twin")
+    emit({"phase": "serve_self_verify_bf16", **bf16_row})
+    del twin
 
     n_acc_self = [n for _, n in self_ver]
     tiers = {}
@@ -931,6 +1017,8 @@ def phase_serve(dev) -> dict:
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
     if n_acc_self != [MAX_NEW] * len(prompts):
         fail(f"tier 1 did not accept its own greedy output in full: {n_acc_self}")
+    if bf16_row["n_acc"] != [MAX_NEW] * len(prompts) or not bf16_row["tokens_unchanged"]:
+        fail(f"tier 1 in bf16 did not accept its own greedy output in full: {bf16_row['n_acc']}")
     if [o.token_ids.tolist() for o, _ in self_ver] != [o.token_ids.tolist() for o in own]:
         fail("self-verify changed tier 1's own tokens")
     if hits1 - hits0 <= 0:
@@ -992,10 +1080,11 @@ def phase_per_channel(dev) -> dict:
     return launches
 
 
-def _f32_twin(engine, n_pages: int = 64):
-    """The engine's weights with f32 activations (the quantized projections
-    are shared, embeddings and norms cast), with a KV pool of its own."""
-    twin = TierEngine(engine.spec, _cast_activations(engine.params, torch.float32),
+def _twin(engine, dtype, n_pages: int = 64):
+    """The engine's weights with activations of another type (the quantized
+    projections are shared, embeddings and norms cast), with a KV pool of
+    its own."""
+    twin = TierEngine(engine.spec, _cast_activations(engine.params, dtype),
                       page_size=engine.page_size, n_pages=n_pages, device=engine.device,
                       enable_prefix_cache=engine.prefix_cache is not None)
     twin.warmup()
@@ -1182,7 +1271,7 @@ def phase_pipeline(dev, tier0) -> tuple:
     walk_rng = np.random.default_rng(8)
     for dtype in (INT4_DTYPE, torch.float32):
         tiers = [tier0, tier1, tier2] if dtype == INT4_DTYPE else [
-            tier0, _f32_twin(tier1), _f32_twin(tier2)]
+            tier0, _twin(tier1, torch.float32), _twin(tier2, torch.float32)]
         pipe = AdaptiveCascadePipeline(stages(tiers=tiers), predictor, PipelineConfig(
             quality_floor=1.5, min_draft_quality_for_verify=0.0, direct_entry=False,
             allow_tier_skip=False, **base))
@@ -1779,7 +1868,7 @@ def main() -> int:
     paths["scheduled_pipeline"] = phase_scheduled_pipeline(dev, tier0_w8a8, int4_engines)
     phase_step([*int4_engines, tier0_w8a8])
     # the INT4 tiers once more with f32 activations, on the same weights
-    phase_step([_f32_twin(e) for e in int4_engines])
+    phase_step([_twin(e, torch.float32) for e in int4_engines])
     del tier0, tier0_w8a8, int4_engines
     gc.collect()
     torch.cuda.empty_cache()

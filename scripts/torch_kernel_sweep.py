@@ -1,0 +1,288 @@
+#!/usr/bin/env python3
+"""Time the PyTorch port's INT8 matmul and paged attention kernels on one
+NVIDIA GPU: at their table shapes, and at each value of four choices.
+
+    python3 scripts/torch_kernel_sweep.py [--root DIR] [--tag NAME] [--pps 1 2 4]
+        [--int8-blocks 2,16 4,16] [--int8-stages 3 4] [--int8-warps 8,4 4,4]
+
+Table: the INT8 kernel at ``chip_smoke.py``'s ten decode shapes (Qwen2.5-7B
+projections with bf16 x, 14B with f32 x) at M = 1 and 4, and the paged decode
+kernel at its rows (7B heads in bf16, 14B in f32: lengths 37/300/1000/1, the
+scheduler's 8 lanes, one lane of 4100 tokens, one lane of 545 tokens) and the
+window kernel at its table shape. The summary adds up one decode step's INT8
+and paged decode time per model (``decode_step_us``): at M = 1 with the lane
+of 545 tokens, at M = 4 with the table's four lanes. ``--root`` imports
+``adaptive_sd_tpu_torch`` from another checkout (an unpacked parent commit),
+so that two versions are timed on one card in one call: run parent, change,
+change, parent.
+
+Choices (for the package under the repository only; empty lists skip them):
+
+1. ``--pps``: the paged kernels' pages a split (``kPagesPerSplit`` of
+   ``csrc/paged_attention.cuh``).
+2. ``--int8-blocks``: the INT8 K split's targets of decode blocks an SM
+   (``ops/matmul_q.py::_INT8_BLOCKS_PER_SM``), each value a pair "few,wide"
+   such as 2,16.
+3. ``--int8-stages``: the INT8 decode tile's ring depth (``kDecodeStages`` of
+   ``csrc/matmul_int8.cu``).
+4. ``--int8-warps``: the INT8 decode tile's warps for bf16 and for f32 x
+   (``kDecodeWarpsBf16``, ``kDecodeWarpsF32``), each value a pair such as 8,4.
+
+A value of a source constant is built from a copy of ``csrc/`` with that
+constant's line changed, in ``adaptive_sd_tpu_torch/build/variant-<value>/``
+(one nvcc a source, all at once); the sources themselves are not touched.
+
+Each version or value is held against the plain version before it is timed;
+values run in turns (the list, then reversed). The timer is chip_smoke.py's:
+CUDA events around one call after a 256 MB write (cold L2) and a ~1 ms spin
+of the card, mean of 20 calls. One JSON line per timing, then one summary line
+of microseconds by row. The summary also gives ``host_us``: the host's
+microseconds a call of the INT8 and paged decode wrappers and of RMSNorm take
+to enqueue (50 calls while the card spins, so none waits for it). Needs an
+NVIDIA GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import re
+import shutil
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+PAGE, N_PAGES = 128, 512
+# (model, x type, q heads per kv head, kv heads, hidden, ffn, vocab, layers)
+MODELS = (("qwen2.5-7b", torch.bfloat16, 7, 4, 3584, 18944, 152064, 28),
+          ("qwen2.5-14b", torch.float32, 5, 8, 5120, 13824, 152064, 48))
+DECODE_ROWS = (("table", (37, 300, 1000, 1)), ("scheduler 8 lanes",
+               (40, 128, 129, 250, 380, 500, 640, 660)), ("long context", (4100, 37, 300, 1)),
+               ("one lane", (545,)))
+TOL = {torch.bfloat16: dict(rtol=1e-2, atol=2e-2), torch.float32: dict(rtol=1e-4, atol=1e-4)}
+
+
+class Timer:
+    def __init__(self, dev, reps=20):
+        self.flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+        self.reps = reps
+
+    def __call__(self, fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        total = 0.0
+        for _ in range(self.reps):
+            self.flush.zero_()
+            torch.cuda._sleep(2_000_000)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            total += start.elapsed_time(end)
+        return total / self.reps * 1e3  # microseconds
+
+
+def int8_rows(dev, g):
+    out = []
+    for model, dtype, G, n_kv, H, F, V, _ in MODELS:
+        D = 128
+        shapes = {"qkv": (H, (G + 2) * n_kv * D), "o": (G * n_kv * D, H), "gateup": (H, 2 * F),
+                  "down": (F, H), "lm_head": (H, V)}
+        for proj, (K, N) in shapes.items():
+            q = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+            scale = torch.rand(N, generator=g, device=dev) / (64 * K ** 0.5)
+            for M in (1, 4):
+                x = torch.randn(M, K, generator=g, device=dev).to(dtype)
+                out.append((f"int8 {model}:{proj} M={M}", x, q, scale))
+    return out
+
+
+def attn_rows(dev, g):
+    out = []
+    for model, dtype, G, n_kv, *_ in MODELS:
+        D = 128
+        pages = (torch.randint(-127, 128, (n_kv, N_PAGES, PAGE, D), generator=g, device=dev,
+                               dtype=torch.int8),
+                 torch.rand(n_kv, N_PAGES, 1, PAGE, generator=g, device=dev) * 0.02 + 1e-3,
+                 torch.randint(-127, 128, (n_kv, N_PAGES, PAGE, D), generator=g, device=dev,
+                               dtype=torch.int8),
+                 torch.rand(n_kv, N_PAGES, 1, PAGE, generator=g, device=dev) * 0.02 + 1e-3)
+        table = None
+        for label, lens in DECODE_ROWS:
+            maxp = max(10, -(-max(lens) // PAGE))
+            perm = torch.randperm(N_PAGES, generator=g, device=dev)[: len(lens) * maxp]
+            tables = perm.view(len(lens), maxp).to(torch.int32)
+            if lens[-1] == 1:
+                tables[-1] = N_PAGES
+            table = tables if table is None else table
+            q = torch.randn(len(lens), n_kv, G, D, generator=g, device=dev).to(dtype)
+            lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
+            out.append((f"decode {model} {label}", True, (q, *pages, tables, lens_t),
+                        dict(sm_scale=D ** -0.5)))
+        offsets = torch.tensor([0, 128, 512, 0], dtype=torch.int32, device=dev)
+        ctx = offsets + torch.tensor([64, 40, 33, 1], dtype=torch.int32, device=dev)
+        qw = torch.randn(4, n_kv, 64 * G, D, generator=g, device=dev).to(dtype)
+        out.append((f"window {model} table", False, (qw, *pages, table, ctx, offsets),
+                    dict(group=G, sm_scale=D ** -0.5)))
+    return out
+
+
+def time_all(MQ, A, timer, int8, attn, tag, us):
+    for label, x, q, scale in int8:
+        torch.testing.assert_close(MQ.int8_matmul_cuda(x, q, scale).float(),
+                                   MQ.quantized_matmul_ref(x, q, scale).float(), **TOL[x.dtype])
+        t = timer(lambda: MQ.int8_matmul_cuda(x, q, scale))
+        us.setdefault(tag, {}).setdefault(label, []).append(t)
+        print(json.dumps({"version": tag, "row": label, "us": t}), flush=True)
+    for label, decode, a, kw in attn:
+        fn = A.paged_attention if decode else A.paged_window_attention
+        if decode:  # window rows past ctx_len are padding, never read
+            torch.testing.assert_close(fn(*a, **kw).float(),
+                                       A.paged_attention_ref(*a, **kw).float(),
+                                       rtol=1e-2, atol=1e-2)
+        t = timer(lambda: fn(*a, **kw))
+        us.setdefault(tag, {}).setdefault(label, []).append(t)
+        print(json.dumps({"version": tag, "row": label, "us": t}), flush=True)
+
+
+def build_variants(_kernels, variants: dict, names) -> dict:
+    """{tag: {kernel name: C function}}: for each tag, the kernels built from
+    a copy of csrc/ in build/variant-<tag>/ whose lines ``constexpr int
+    <constant> = ...;`` are set to the tag's {constant: value}."""
+    nvcc, procs = _kernels.nvcc_path(), []
+    for n, values in variants.items():
+        out = _kernels.BUILD_DIR / f"variant-{n}"
+        src = out / "csrc"
+        shutil.copytree(_kernels.CSRC, src, dirs_exist_ok=True)
+        for constant, value in values.items():
+            pattern, hits = re.compile(rf"constexpr int {constant} = \d+;"), 0
+            for f in src.iterdir():
+                text, k = pattern.subn(f"constexpr int {constant} = {value};", f.read_text())
+                if k:
+                    f.write_text(text)
+                    hits += k
+            if hits != 1:
+                raise SystemExit(f"{constant}: {hits} definitions in csrc/, expected 1")
+        for name in names:
+            lib = out / f"lib{name}.so"
+            cmd = [nvcc, *_kernels.NVCC_FLAGS, "-o", str(lib), str(src / _kernels.KERNELS[name][0])]
+            procs.append((n, name, lib, subprocess.Popen(cmd, stderr=subprocess.PIPE, text=True)))
+    funcs = {}
+    for n, name, lib, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode:
+            raise SystemExit(f"nvcc failed for {name} at {n}:\n{err}")
+        _, symbol, argtypes = _kernels.KERNELS[name]
+        fn = getattr(ctypes.CDLL(str(lib)), symbol)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        funcs.setdefault(n, {})[name] = fn
+    return funcs
+
+
+def host_us(fn, n=50) -> float:
+    """Host microseconds a call of ``fn`` takes to enqueue, over n calls made
+    while the card spins (~0.2 ms a call), so that no call waits for it."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(n * 400_000)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / n * 1e6
+
+
+def host_rows(MQ, A, Q, int8, attn, dev, g) -> dict:
+    """host_us of the wrappers on one decode step's shapes (Qwen2.5-7B, four
+    lanes): the qkv projection, paged decode and RMSNorm, and RMSNorm over a
+    300-row window."""
+    _, x, q, scale = next(r for r in int8 if r[0] == "int8 qwen2.5-7b:qkv M=4")
+    _, _, a, kw = next(r for r in attn if r[0] == "decode qwen2.5-7b table")
+    w = torch.randn(3584, generator=g, device=dev).to(torch.bfloat16)
+    h4, h300 = (torch.randn(n, 3584, generator=g, device=dev).to(torch.bfloat16) for n in (4, 300))
+    return {"int8 qkv M=4": host_us(lambda: MQ.int8_matmul_cuda(x, q, scale)),
+            "paged decode table": host_us(lambda: A.paged_attention(*a, **kw)),
+            "rms_norm 4 rows": host_us(lambda: Q.rms_norm(h4, w, 1e-6)),
+            "rms_norm 300 rows": host_us(lambda: Q.rms_norm(h300, w, 1e-6))}
+
+
+def decode_steps(us: dict) -> dict:
+    """Device microseconds of one decode step's INT8 matmuls and paged decode
+    per model and version: layers x (the four projections + paged decode)
+    + lm_head, at M = 1 (one lane of 545 tokens) and M = 4 (the table's four
+    lanes). Versions without every row are left out."""
+    out = {}
+    for tag, rows in us.items():
+        mean = {k: sum(v) / len(v) for k, v in rows.items()}
+        for model, *_, layers in MODELS:
+            for m, attn in ((1, "one lane"), (4, "table")):
+                keys = [f"int8 {model}:{p} M={m}" for p in ("qkv", "o", "gateup", "down")]
+                head, dec = f"int8 {model}:lm_head M={m}", f"decode {model} {attn}"
+                if all(k in mean for k in (*keys, head, dec)):
+                    out.setdefault(tag, {})[f"{model} M={m}"] = (
+                        layers * (sum(mean[k] for k in keys) + mean[dec]) + mean[head])
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=str(REPO))
+    ap.add_argument("--tag", default=None)
+    ap.add_argument("--pps", type=int, nargs="*", default=[])
+    ap.add_argument("--int8-blocks", nargs="*", default=[])
+    ap.add_argument("--int8-stages", type=int, nargs="*", default=[])
+    ap.add_argument("--int8-warps", nargs="*", default=[])
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, args.root)
+    from adaptive_sd_tpu_torch.ops import _kernels
+    from adaptive_sd_tpu_torch.ops import attention as A
+    from adaptive_sd_tpu_torch.ops import matmul_q as MQ
+    from adaptive_sd_tpu_torch.models import qwen as Q
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    int8, attn = int8_rows(dev, g), attn_rows(dev, g)
+    timer, us = Timer(dev), {}
+    time_all(MQ, A, timer, int8, attn, args.tag or args.root, us)
+    host = {args.tag or args.root: host_rows(MQ, A, Q, int8, attn, dev, g)}
+    for n in [*args.int8_blocks, *reversed(args.int8_blocks)]:
+        saved, MQ._INT8_BLOCKS_PER_SM = MQ._INT8_BLOCKS_PER_SM, tuple(map(int, n.split(",")))
+        time_all(MQ, A, timer, int8, [], f"int8_blocks_per_sm={n}", us)
+        MQ._INT8_BLOCKS_PER_SM = saved
+    int8_variants = {
+        **{f"int8_decode_stages={n}": {"kDecodeStages": n} for n in args.int8_stages},
+        **{f"int8_decode_warps={w}": dict(zip(("kDecodeWarpsBf16", "kDecodeWarpsF32"),
+                                              map(int, w.split(","))))
+           for w in args.int8_warps}}
+    if int8_variants:
+        funcs = build_variants(_kernels, int8_variants, ("int8_matmul",))
+        for n in [*int8_variants, *reversed(int8_variants)]:
+            _kernels._funcs.update(funcs[n])
+            time_all(MQ, A, timer, int8, [], n, us)
+        _kernels._funcs.pop("int8_matmul")
+    if args.pps:
+        variants = {f"pages_per_split={n}": {"kPagesPerSplit": n} for n in args.pps}
+        funcs = build_variants(_kernels, variants, ("paged_decode", "paged_window"))
+        for n in [*variants, *reversed(variants)]:
+            _kernels._funcs.update(funcs[n])
+            time_all(MQ, A, timer, [], attn, n, us)
+    sums = {tag: {f"int8 M={m}": sum(sum(v) / len(v) for k, v in rows.items()
+                                     if k.startswith("int8") and k.endswith(f"M={m}"))
+                  for m in (1, 4)} for tag, rows in us.items()}
+    print(json.dumps({"device": torch.cuda.get_device_name(0), "us": us, "int8_sums": sums,
+                      "decode_step_us": decode_steps(us), "host_us": host}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

