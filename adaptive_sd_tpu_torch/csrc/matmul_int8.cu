@@ -77,32 +77,6 @@ template <typename T>
 using WindowTile = std::conditional_t<sizeof(T) == 2, Tile<T, 8, 32, 1, 4, 4, true>,
                                       Tile<T, 8, 32, 2, 4, 3, true>>;
 
-// Bytes `byte` of k-rows x and y (two's complement w) -> the bf16 pair
-// (w_x, w_y): a __byte_perm puts the two bytes in the low bytes of the two
-// halves; per half, 0x4300 | (b & 0x7F) is bf16 128 + (b & 0x7F) and
-// 0x4300 | (b & 0x80) is 128 (w >= 0) or 256 (w < 0), and their difference,
-// one bf16x2 subtraction, is w exactly (four instructions for two weights).
-__device__ __forceinline__ uint32_t s8pair_bf16(uint32_t x, uint32_t y, int byte) {
-  const uint32_t v = __byte_perm(x, y, (uint32_t)byte * 0x1111u + 0x4400u);
-  const uint32_t lo = (v & 0x007F007Fu) | 0x43004300u;
-  const uint32_t hi = (v & 0x00800080u) | 0x43004300u;
-  const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&lo),
-                                   *reinterpret_cast<const __nv_bfloat162*>(&hi));
-  return *reinterpret_cast<const uint32_t*>(&d);
-}
-
-// The A fragment of weight tile i from the thread's four k-rows (2t, 2t + 1,
-// 2t + 8, 2t + 9 of the k-step; w[row][word]): rows g and g + 8 of the tile
-// are the thread's bytes 2i and 2i + 1.
-template <int NW>
-__device__ __forceinline__ void a_frag(const uint32_t (&w)[4][NW], int i, uint32_t (&a)[4]) {
-  const int v = i / 2, p = 2 * (i % 2);
-  a[0] = s8pair_bf16(w[0][v], w[1][v], p);
-  a[1] = s8pair_bf16(w[0][v], w[1][v], p + 1);
-  a[2] = s8pair_bf16(w[2][v], w[3][v], p);
-  a[3] = s8pair_bf16(w[2][v], w[3][v], p + 1);
-}
-
 template <typename T, typename C>
 __global__ void __launch_bounds__(C::kThreads, C::kMinBlocks)
 int8_matmul_mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
@@ -199,7 +173,7 @@ int8_matmul_mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
   auto mma_step = [&](const uint8_t* Xs, int ks, const uint32_t (&w)[4][NW], bool fresh) {
     uint32_t a[MW][4];
 #pragma unroll
-    for (int i = 0; i < MW; ++i) a_frag<NW>(w, i, a[i]);
+    for (int i = 0; i < MW; ++i) asd::a_frag_s8<NW>(w, i, a[i]);
 #pragma unroll
     for (int p = 0; p < C::kTerms; ++p) {
       uint32_t b[NT][2];

@@ -1,7 +1,8 @@
 // bf16 tensor-core building blocks shared by the weight-only matmul kernels
-// (matmul_int4.cu, matmul_int8.cu): their tile shape, mma.sync.m16n8k16 with
-// f32 accumulators, ldmatrix, the stage's weight words and x fragments, and
-// the exact three-term bf16 split of f32 activations. Each kernel keeps its
+// (matmul_int4.cu, matmul_int8.cu) and the paged attention split body
+// (paged_attention.cuh): their tile shape, mma.sync.m16n8k16 with f32
+// accumulators, ldmatrix, exact int8 -> bf16 pairs, the stage's weight words
+// and x fragments, and the exact three-term bf16 split of f32 activations. Each kernel keeps its
 // own stage loop: INT4 walks two halves of packed rows with group scales,
 // INT8 one run of k-rows.
 #pragma once
@@ -69,6 +70,37 @@ __device__ __forceinline__ void split3(float x, __nv_bfloat16& h, __nv_bfloat16&
   const float r = x - __bfloat162float(h);
   m = __float2bfloat16_rn(r);
   l = __float2bfloat16_rn(r - __bfloat162float(m));
+}
+
+// Bytes 0 and 2 of v (two's complement w) -> the bf16 pair (w0, w2), exactly:
+// per half, 0x4300 | (b & 0x7F) is bf16 128 + (b & 0x7F) and 0x4300 | (b &
+// 0x80) is 128 (w >= 0) or 256 (w < 0), and their difference, one bf16x2
+// subtraction, is w (|w| <= 128 has at most 8 significant bits).
+__device__ __forceinline__ uint32_t s8x2_bf16(uint32_t v) {
+  const uint32_t lo = (v & 0x007F007Fu) | 0x43004300u;
+  const uint32_t hi = (v & 0x00800080u) | 0x43004300u;
+  const __nv_bfloat162 d = __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&lo),
+                                   *reinterpret_cast<const __nv_bfloat162*>(&hi));
+  return *reinterpret_cast<const uint32_t*>(&d);
+}
+
+// Bytes `byte` of k-rows x and y -> the bf16 pair (w_x, w_y): a __byte_perm
+// puts the two bytes in the low bytes of the two halves (four instructions
+// for two weights).
+__device__ __forceinline__ uint32_t s8pair_bf16(uint32_t x, uint32_t y, int byte) {
+  return s8x2_bf16(__byte_perm(x, y, (uint32_t)byte * 0x1111u + 0x4400u));
+}
+
+// The A fragment of int8 tile i from the thread's four k-rows (2t, 2t + 1,
+// 2t + 8, 2t + 9 of the k-step; w[row][word]): rows g and g + 8 of the tile
+// are the thread's bytes 2i and 2i + 1.
+template <int NW>
+__device__ __forceinline__ void a_frag_s8(const uint32_t (&w)[4][NW], int i, uint32_t (&a)[4]) {
+  const int v = i / 2, p = 2 * (i % 2);
+  a[0] = s8pair_bf16(w[0][v], w[1][v], p);
+  a[1] = s8pair_bf16(w[0][v], w[1][v], p + 1);
+  a[2] = s8pair_bf16(w[2][v], w[3][v], p);
+  a[3] = s8pair_bf16(w[2][v], w[3][v], p + 1);
 }
 
 constexpr int kStageRows = 32;  // q rows a stage: k-rows (INT8) or packed rows (INT4)

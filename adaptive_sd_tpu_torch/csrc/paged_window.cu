@@ -4,22 +4,37 @@
 //
 // Replaces: adaptive_sd_tpu/ops/attention.py:_window_kernel (via paged_window_attention).
 //
-// Bound on an H100: bytes for short windows; for windows of hundreds of
-// positions the score and P @ V arithmetic on CUDA cores. Rows are w-major
-// (row r is query position offsets[b] + r // G); the W*G rows of a kv head are
-// tiled 16 at a time over grid.x, so long windows fill the SMs. Each tile
-// walks the splits of the decode kernel in turn (split_partial of
-// paged_attention.cuh, the same kPagesPerSplit boundaries) and merges each
-// split's partial into its rows in split order with the decode kernel's
-// formula, so a query row's output equals the decode kernel's bit for bit.
-// It reads the pages below ctx_len up to the tile's last query position; the
-// per-row causal mask key_pos <= q_pos covers the prefix and the window (its
-// KV is written to the pages first). A row with no visible key gives 0.
+// Bound on an H100: bytes for short windows (each split's K/V pages once per
+// row tile); for windows of hundreds of positions, bf16 tensor-core
+// operations (paged_attention.cuh). Rows are w-major (row r is query position
+// offsets[b] + r // G).
+//
+// Design: the grid is (row tile, split, kv head x sequence). The W*G rows of
+// a kv head are tiled kWindowRows at a time, so a page copied to shared
+// memory serves that many rows as kWindowRows / 8 n-tiles of the split
+// body's MMAs. A tile's pages are cut into the decode kernel's splits
+// (kPagesPerSplit pages at fixed boundaries), one block each, so a tile's
+// latency is one split's chain and not the sum of its pages'. A tile's split
+// count comes from its last query position (pages below ctx_len up to it);
+// blocks past it return at once. Each block writes its split's partial (m,
+// l, acc) to the launch's workspace; the last block of a (tile, kv head,
+// sequence) to finish, found by a counter that it returns to 0, merges the
+// partials in split order with the decode kernel's merge (finish_split). A
+// tile with one split merges in place. A split that some rows of the tile
+// see none of leaves their merge unchanged bit for bit, and the split body
+// gives a row the same bits in any column, so a query row's output equals
+// the decode kernel's bit for bit. The per-row causal mask key_pos <= q_pos
+// covers the prefix and the window (its KV is written to the pages first). A
+// row with no visible key gives 0. No memset: the workspace is the caller's,
+// the counters the stream's. A launch covers the row tiles [tile0, tile0 +
+// tiles): tiles are independent, so the caller cuts a long window into
+// launches whose partials fit a fixed workspace (the partials of every tile
+// would grow with the window times the table width).
 #include "paged_attention.cuh"
 
 namespace {
 
-constexpr int kWindowRows = 16;  // query rows per block
+constexpr int kWindowRows = 32;  // query rows a block (a tile), chosen by measurement (PERF.md)
 constexpr int kSlots = asd::kPagesPerSplit > 1 ? 2 : 1;
 
 template <typename T>
@@ -28,86 +43,90 @@ paged_window_kernel(const T* __restrict__ q, const int8_t* __restrict__ k_pages,
                     const float* __restrict__ k_scales, const int8_t* __restrict__ v_pages,
                     const float* __restrict__ v_scales, const int* __restrict__ block_tables,
                     const int* __restrict__ ctx_lens, const int* __restrict__ offsets,
-                    T* __restrict__ out, int n_kv, int WG, int G, int D, int n_pages, int page,
-                    int max_pages, float sm_scale) {
+                    T* __restrict__ out, float* __restrict__ ws, int* __restrict__ counters,
+                    int n_kv, int WG, int G, int D, int n_pages, int page, int max_pages,
+                    int n_splits_max, int tile0, float sm_scale) {
   constexpr int R = kWindowRows;
   extern __shared__ __align__(16) unsigned char smem[];
-  const int r0 = blockIdx.x * R, h = blockIdx.y, b = blockIdx.z;
-  const int tid = threadIdx.x;
+  const int tile = tile0 + blockIdx.x, s = blockIdx.y, bh = blockIdx.z;
+  const int b = bh / n_kv, h = bh % n_kv;
+  const int r0 = tile * R;
   const int n_rows = min(R, WG - r0);
-  const size_t row0 = ((size_t)b * n_kv + h) * WG + r0;
+  const size_t row0 = (size_t)bh * WG + r0;
   const int offset = offsets[b];
+  const int entry0 = block_tables[(size_t)b * max_pages + s * asd::kPagesPerSplit];
   const int n_used = asd::used_pages(ctx_lens[b], offset + (r0 + n_rows - 1) / G, page, max_pages);
   const int n_splits = (n_used + asd::kPagesPerSplit - 1) / asd::kPagesPerSplit;
+  if (s >= max(n_splits, 1)) return;
 
-  asd::AttnSmem<R> sm(smem, page, D);
-  for (int i = tid; i < R * D; i += asd::kAttnThreads)
-    sm.qs[i] = i / D < n_rows ? asd::to_f(q[row0 * D + i]) : 0.f;
-  const asd::PageSrc src{block_tables + (size_t)b * max_pages, k_pages, k_scales, v_pages,
-                         v_scales, n_pages, page, D, h};
-  float acc[R], m[R], l[R];  // the running merge (m and l the same in every thread)
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    acc[r] = 0.f;
-    m[r] = asd::kNegInf;
-    l[r] = 0.f;
+  asd::AttnSmem<R, asd::kAttnTerms<T>> sm(smem, page, D);
+  if (n_splits > 0) {
+    const asd::PageSrc src{block_tables + (size_t)b * max_pages, k_pages, k_scales, v_pages,
+                           v_scales, n_pages, page, D, h};
+    asd::split_partial<R, kSlots>(src, sm, q + row0 * D, n_rows, r0, G, offset,
+                                  s * asd::kPagesPerSplit,
+                                  min(n_used, (s + 1) * asd::kPagesPerSplit), entry0, sm_scale);
+  } else {
+    asd::empty_partial(sm, D);
   }
-  for (int s = 0; s < n_splits; ++s) {
-    float part[R];
-    asd::split_partial<R, kSlots>(src, sm, n_rows, r0, G, offset, s * asd::kPagesPerSplit,
-                                  min(n_used, (s + 1) * asd::kPagesPerSplit), sm_scale, part);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      float a, c;
-      asd::merge_factors(m[r], l[r], sm.ml[r], sm.ml[2 * R + r], a, c);
-      acc[r] = asd::merge_acc(acc[r], part[r], a, c);
-    }
-  }
-  if (tid < D) {
-#pragma unroll
-    for (int r = 0; r < R; ++r)
-      if (r < n_rows) out[(row0 + r) * D + tid] = asd::from_f<T>(asd::finish(acc[r], l[r]));
-  }
+  asd::finish_split<R>(sm, out + row0 * D, ws, counters, n_rows, D, page, n_splits,
+                       n_splits_max, (size_t)bh * gridDim.x + blockIdx.x,
+                       (size_t)gridDim.z * gridDim.x, s);
 }
 
 template <typename T>
 int run(const void* q, const void* kp, const void* ks, const void* vp, const void* vs,
-        const void* tables, const void* ctx, const void* offs, void* out, int B, int n_kv,
-        int WG, int G, int D, int n_pages, int page, int max_pages, float sm_scale,
-        cudaStream_t stream) {
+        const void* tables, const void* ctx, const void* offs, void* out, void* ws,
+        void* counters, int B, int n_kv, int WG, int G, int D, int n_pages, int page,
+        int max_pages, int tile0, int tiles, float sm_scale, cudaStream_t stream) {
   static size_t smem_done = 0;
-  const size_t smem = asd::attn_smem_bytes(kWindowRows, page, D, kSlots);
+  const size_t smem = asd::AttnSmem<kWindowRows, asd::kAttnTerms<T>>::bytes(page, D, kSlots);
   cudaError_t err = asd::ensure_smem(paged_window_kernel<T>, smem, &smem_done);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((WG + kWindowRows - 1) / kWindowRows, n_kv, B);
+  const int n_splits_max = (max_pages + asd::kPagesPerSplit - 1) / asd::kPagesPerSplit;
+  dim3 grid(tiles, n_splits_max, B * n_kv);
   paged_window_kernel<T><<<grid, asd::kAttnThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const int8_t*>(kp), static_cast<const float*>(ks),
       static_cast<const int8_t*>(vp), static_cast<const float*>(vs),
       static_cast<const int*>(tables), static_cast<const int*>(ctx),
-      static_cast<const int*>(offs), static_cast<T*>(out), n_kv, WG, G, D, n_pages, page,
-      max_pages, sm_scale);
+      static_cast<const int*>(offs), static_cast<T*>(out), static_cast<float*>(ws),
+      static_cast<int*>(counters), n_kv, WG, G, D, n_pages, page, max_pages, n_splits_max, tile0,
+      sm_scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The query rows of a window tile (ops/attention.py sizes the workspace and
+// the launches from it).
+extern "C" int asd_paged_window_rows() { return kWindowRows; }
+
 // q/out [B, n_kv, W*G, D] (bf16 if is_bf16 else f32); pages and scales as in
-// asd_paged_decode; ctx_lens and offsets [B] i32. Requires D % 16 == 0,
-// D <= 128, page % 4 == 0.
+// asd_paged_decode; ctx_lens and offsets [B] i32. Computes the row tiles
+// [tile0, tile0 + tiles) of kWindowRows rows (of ceil(W*G / kWindowRows)).
+// Used when max_pages > kPagesPerSplit: ws, at least B * n_kv * tiles *
+// max_pages * kWindowRows * (D + 2) f32 (the splits' acc, then their m and
+// l), and counters [B, n_kv, tiles] i32, zero on entry and left zero (one
+// buffer serves every launch on a stream). Requires D of 64 or 128, page a
+// multiple of 16 up to 128.
 extern "C" int asd_paged_window(const void* q, const void* k_pages, const void* k_scales,
                                 const void* v_pages, const void* v_scales,
                                 const void* block_tables, const void* ctx_lens,
-                                const void* offsets, void* out, int B, int n_kv, int WG, int G,
-                                int D, int n_pages, int page, int max_pages, float sm_scale,
-                                int is_bf16, void* stream) {
-  if (G < 1 || D % 16 || D > 128 || page % 4 || B <= 0 || WG <= 0 || max_pages <= 0)
+                                const void* offsets, void* out, void* ws, void* counters, int B,
+                                int n_kv, int WG, int G, int D, int n_pages, int page,
+                                int max_pages, int tile0, int tiles, float sm_scale, int is_bf16,
+                                void* stream) {
+  if (G < 1 || (D != 64 && D != 128) || page % 16 || page > asd::kMaxPage || B <= 0 ||
+      WG <= 0 || max_pages <= 0 || tile0 < 0 || tiles < 1 ||
+      (long long)(tile0 + tiles - 1) * kWindowRows >= WG)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
     return run<__nv_bfloat16>(q, k_pages, k_scales, v_pages, v_scales, block_tables, ctx_lens,
-                              offsets, out, B, n_kv, WG, G, D, n_pages, page, max_pages,
-                              sm_scale, s);
+                              offsets, out, ws, counters, B, n_kv, WG, G, D, n_pages, page,
+                              max_pages, tile0, tiles, sm_scale, s);
   }
   return run<float>(q, k_pages, k_scales, v_pages, v_scales, block_tables, ctx_lens, offsets,
-                    out, B, n_kv, WG, G, D, n_pages, page, max_pages, sm_scale, s);
+                    out, ws, counters, B, n_kv, WG, G, D, n_pages, page, max_pages, tile0, tiles,
+                    sm_scale, s);
 }

@@ -30,7 +30,7 @@ KERNELS = {
     "int4_matmul": ("matmul_int4.cu", "asd_int4_matmul", [_P] * 5 + [_I] * 9 + [_P]),
     "w8a8_matmul": ("matmul_w8a8.cu", "asd_w8a8_matmul", [_P] * 8 + [_I] * 9 + [_P]),
     "paged_decode": ("paged_decode.cu", "asd_paged_decode", [_P] * 10 + [_I] * 7 + [_F, _I, _P]),
-    "paged_window": ("paged_window.cu", "asd_paged_window", [_P] * 9 + [_I] * 8 + [_F, _I, _P]),
+    "paged_window": ("paged_window.cu", "asd_paged_window", [_P] * 11 + [_I] * 10 + [_F, _I, _P]),
 }
 _HEADERS = ("common.cuh", "mma_bf16.cuh", "paged_attention.cuh")
 NVCC_FLAGS = [
@@ -45,7 +45,9 @@ class LaunchCounter:
     wrappers call :meth:`launched` with M first: ``windows`` counts their
     launches at M > 16 (verify windows, prefill), the rest are decode
     launches. Set ``shapes`` to a set to collect the distinct shapes the
-    kernel was launched at."""
+    kernel was launched at (the paged window wrapper adds each call with
+    its offset and length tensors themselves, fresh for each forward, so
+    that collecting runs nothing on the card)."""
 
     def __init__(self) -> None:
         self.launches = 0
@@ -61,6 +63,7 @@ class LaunchCounter:
 
 
 _lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
 _funcs: dict[str, ctypes._CFuncPtr] = {}
 
 
@@ -120,21 +123,34 @@ def build(names=None, *, ptxas_verbose: bool = False) -> dict[str, dict]:
     return out
 
 
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        with _lock:
+            lib = _libs.get(name)
+            if lib is None:
+                build([name])
+                lib = _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+    return lib
+
+
 def function(name: str):
-    """The C entry point of kernel library ``name``, built on first use."""
+    """The C entry point of kernel library ``name``."""
     fn = _funcs.get(name)
-    if fn is not None:
-        return fn
-    with _lock:
-        fn = _funcs.get(name)
-        if fn is None:
-            build([name])
-            _, symbol, argtypes = KERNELS[name]
-            fn = getattr(ctypes.CDLL(str(_lib_path(name))), symbol)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-            _funcs[name] = fn
+    if fn is None:
+        _, symbol, argtypes = KERNELS[name]
+        fn = getattr(library(name), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _funcs[name] = fn
     return fn
+
+
+def constant(name: str, symbol: str) -> int:
+    """The value of ``int symbol(void)``, a constant of kernel library
+    ``name``'s source that the library exports."""
+    return int(getattr(library(name), symbol)())
 
 
 def check(rc: int, what: str) -> None:
@@ -154,7 +170,7 @@ _tile_counters: dict = {}
 def tile_counters(t, stream: int, n: int):
     """A zeroed int32 buffer of at least ``n`` tile counters for kernels that
     ``stream`` (``stream_of(t)``) runs on ``t``'s device. The split kernels
-    (INT8 matmul, paged decode) find a tile's last block with such a counter
+    (INT8 matmul, paged decode, paged window) find a tile's last block with a counter
     and that block returns it to 0, so every launch leaves the buffer zero:
     it is zeroed once, and each stream has its own, so no memset runs per
     call and concurrent streams never share a counter."""

@@ -11,9 +11,11 @@
   prefix) launch the hand-written Hopper kernels ``csrc/paged_decode.cu`` and
   ``csrc/paged_window.cu`` for CUDA tensors and take their plain versions
   (``*_ref``) for CPU tensors. Both kernels cut a sequence's pages into
-  splits of :data:`PAGES_PER_SPLIT` pages (:func:`decode_splits`) and merge
-  the splits' partial softmaxes in split order, so a query row gets the same
-  bits from either kernel.
+  splits of :data:`PAGES_PER_SPLIT` pages (:func:`decode_splits`), run a
+  block per split (the window kernel per split of each tile of
+  :func:`window_rows` query rows, :func:`window_tile_splits`) and merge the
+  splits' partial softmaxes in split order with one merge, so a query row
+  gets the same bits from either kernel.
 * :func:`prefill_attention` is the counterpart of ``jax.nn.dot_product_attention``
   (XLA's op, not a Pallas kernel) and calls
   ``torch.nn.functional.scaled_dot_product_attention``.
@@ -36,6 +38,17 @@ _DECODE_MAX_G = 8  # the decode kernel's largest query group (Qwen2.5-72B)
 # 128 tokens a block, chosen by measurement (PERF.md). The decode workspace is
 # sized for a split a page, so it holds the splits of any split size.
 PAGES_PER_SPLIT = 1
+# The most workspace one window launch takes. The partials of every split of
+# every row tile grow with the window times the table width (quadratic in
+# the context); tiles are independent, so a call whose partials would need
+# more runs as launches over ranges of row tiles, each within this.
+WINDOW_WS_BYTES = 128 << 20
+
+
+def window_rows() -> int:
+    """Query rows of a window tile: csrc/paged_window.cu kWindowRows, which
+    its library exports (chosen by measurement, PERF.md)."""
+    return _kernels.constant("paged_window", "asd_paged_window_rows")
 
 
 def decode_splits(ctx_len: int, max_pages: int, page: int) -> list[tuple[int, int]]:
@@ -46,6 +59,41 @@ def decode_splits(ctx_len: int, max_pages: int, page: int) -> list[tuple[int, in
     them in this order; the window kernel walks them in this order."""
     n_used = min(-(-ctx_len // page), max_pages) if ctx_len > 0 else 0
     return [(s, min(s + PAGES_PER_SPLIT, n_used)) for s in range(0, n_used, PAGES_PER_SPLIT)]
+
+
+def window_tile_splits(tile: int, rows: int, WG: int, group: int, offset: int, ctx_len: int,
+                       max_pages: int, page: int) -> list[tuple[int, int]]:
+    """The splits row tile ``tile`` (rows ``tile * rows`` on, of ``WG``) of
+    one sequence reads, one block each: :func:`decode_splits` of the pages
+    below ``ctx_len`` cut at its last row's query position ``offset + row //
+    group``. A row of the tile reads the splits up to its own position's
+    page; the later ones it sees nothing of."""
+    last_qpos = offset + (min(WG, (tile + 1) * rows) - 1) // group
+    if ctx_len <= 0 or last_qpos < 0:
+        return []
+    return decode_splits(min(ctx_len, (last_qpos // page + 1) * page), max_pages, page)
+
+
+def window_plan(B: int, n_kv: int, WG: int, max_pages: int, D: int,
+                rows: int) -> tuple[int, int, int, int, int]:
+    """The window kernel's sizing from a call's shapes and the tile's
+    ``rows``: (row tiles of a kv head, row tiles a launch, the grid's split
+    axis, f32 elements of a launch's workspace, tile counters). The split
+    axis holds the most splits a tile can have (every page of the table a
+    split); the workspace a partial (acc [rows, D], then m and l) of every
+    split of every tile of a launch, and the tiles are cut into as few even
+    launches as keep it within :data:`WINDOW_WS_BYTES` (at least one tile a
+    launch). With a single split there is nothing to merge: one launch, no
+    workspace, no counters."""
+    n_tiles = -(-WG // rows)
+    n_splits = -(-max_pages // PAGES_PER_SPLIT)
+    if n_splits <= 1:
+        return n_tiles, n_tiles, n_splits, 0, 0
+    per_tile = B * n_kv * n_splits * rows * (D + 2)
+    fit = max(1, WINDOW_WS_BYTES // (4 * per_tile))
+    n_launches = -(-n_tiles // fit)
+    tiles = -(-n_tiles // n_launches)
+    return n_tiles, tiles, n_splits, tiles * per_tile, B * n_kv * tiles
 
 
 def _gather_pages(pages, scales, block_tables):
@@ -110,10 +158,11 @@ def _check_paged(q, k_pages, k_scales, v_pages, v_scales, block_tables, *lens):
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the paged attention kernels take contiguous tensors")
     D = q.shape[-1]
-    if D % 16 or D > 128:
-        raise ValueError(f"head_dim must be a multiple of 16 and <= 128, got {D}")
-    if k_pages.shape[2] % 4:
-        raise ValueError(f"page size must be a multiple of 4, got {k_pages.shape[2]}")
+    if D not in (64, 128):
+        raise ValueError(f"head_dim must be 64 or 128, got {D}")
+    page = k_pages.shape[2]
+    if page % 16 or page > 128:
+        raise ValueError(f"page size must be a multiple of 16 up to 128, got {page}")
 
 
 def paged_attention(
@@ -176,7 +225,12 @@ def paged_window_attention(
     sm_scale: float,
 ) -> torch.Tensor:
     """Windowed flash attention over paged INT8 KV (prefix-cached
-    admission, speculative verify). Returns [B, n_kv, W*G, D]."""
+    admission, speculative verify). Returns [B, n_kv, W*G, D]. On CUDA a
+    block per (row tile, split, kv head x sequence), the last block of each
+    tile merging its splits' partials through a workspace allocated here for
+    this call; one launch, or a launch per range of row tiles where the
+    partials of all would exceed :data:`WINDOW_WS_BYTES` (:func:`window_plan`;
+    the tile counters are the stream's)."""
     if q.device.type == "cpu":
         return paged_window_attention_ref(q, k_pages, k_scales, v_pages, v_scales,
                                           block_tables, ctx_lens, offsets,
@@ -185,16 +239,30 @@ def paged_window_attention(
     _check_paged(q, k_pages, k_scales, v_pages, v_scales, block_tables, ctx_lens, offsets)
     B, n_kv, WG, D = q.shape
     _, n_pages, page, _ = k_pages.shape
+    max_pages = block_tables.shape[1]
     out = torch.empty_like(q)
-    rc = _kernels.function("paged_window")(
-        q.data_ptr(), k_pages.data_ptr(), k_scales.data_ptr(), v_pages.data_ptr(),
-        v_scales.data_ptr(), block_tables.data_ptr(), ctx_lens.data_ptr(),
-        offsets.data_ptr(), out.data_ptr(), B, n_kv, WG, int(group), D, n_pages, page,
-        block_tables.shape[1], float(sm_scale), int(q.dtype == torch.bfloat16),
-        _kernels.stream_of(q),
-    )
-    _kernels.check(rc, "paged window attention")
-    paged_window_counter.launches += 1
+    stream = _kernels.stream_of(q)
+    n_tiles, tiles, _, ws_elems, n_counters = window_plan(B, n_kv, WG, max_pages, D,
+                                                          window_rows())
+    ws = counters = None
+    if ws_elems:
+        ws = torch.empty(ws_elems, dtype=torch.float32, device=q.device)
+        counters = _kernels.tile_counters(q, stream, n_counters)
+    fn = _kernels.function("paged_window")
+    for tile0 in range(0, n_tiles, tiles):
+        rc = fn(q.data_ptr(), k_pages.data_ptr(), k_scales.data_ptr(), v_pages.data_ptr(),
+                v_scales.data_ptr(), block_tables.data_ptr(), ctx_lens.data_ptr(),
+                offsets.data_ptr(), out.data_ptr(), ws.data_ptr() if ws is not None else None,
+                counters.data_ptr() if counters is not None else None, B, n_kv, WG,
+                int(group), D, n_pages, page, max_pages, tile0, min(tiles, n_tiles - tile0),
+                float(sm_scale), int(q.dtype == torch.bfloat16), stream)
+        _kernels.check(rc, "paged window attention")
+        paged_window_counter.launches += 1
+    if paged_window_counter.shapes is not None:
+        # the call's shape with its offset and length tensors (fresh for each
+        # forward, never written after): collecting runs nothing on the card
+        paged_window_counter.shapes.add((B, WG // group, int(group), n_kv, D, page, max_pages,
+                                         str(q.dtype), offsets, ctx_lens))
     return out
 
 

@@ -11,7 +11,9 @@ Phases, one JSON line each; any failure exits non-zero:
    card, at the paths' real shapes (Qwen2.5-7B, 14B and 32B; INT8 also at
    verify-window and prefill M, beside torch.matmul on the dequantised
    weight; paged decode also at the scheduler's 8 lanes and at one lane of
-   4100 tokens), with times:
+   4100 tokens; paged window also at the pipeline's verify over a cached
+   prefix and at a 512-token prefill, beside scaled_dot_product_attention on
+   K/V dequantised beforehand), with times:
    kernel, plain version, one PyTorch library call where one computes the
    same function, and the bound (bytes over the card's memory rate or
    operations over its peak, whichever is larger).
@@ -55,9 +57,12 @@ Phases, one JSON line each; any failure exits non-zero:
    tokens held against ``AdaptiveCascadePipeline`` over the same engines.
 7. step: one decode step of each tier, its launches per kernel, its time and
    the device's busy time by kernel (torch.profiler), and the seconds of a
-   512-token prefill; the INT4 tiers also with f32 activations.
+   512-token prefill and its device time by kernel; the INT4 tiers also with
+   f32 activations.
 8. path_shapes: the matmul wrappers collected every distinct (M, K, N, group
-   size, type) that paths 4, 5 and 6 launched them at; each kernel is held
+   size, type) that paths 4, 5 and 6 launched them at, and the paged window
+   wrapper every forward's call (batch, W, offsets, window lengths, G, type;
+   a line gives the histograms of W and of the cached pages); each kernel is held
    against its plain version at every one of them.
 
 The kernels' launch counters are zeroed just before each of the paths 4, 5
@@ -164,6 +169,18 @@ W8A8_M_WINDOWS = (192, 576, 2304)
 # M (512 and above), where torch.matmul on the dequantised weight is timed
 # beside the kernel
 INT8_M_WINDOWS = (32, 192, 512, 576, 2304)
+# Paged attention against its plain version: f32 sums in another order (and
+# the tensor cores' truncating adds); bf16 outputs, and bf16 probabilities,
+# rounded once. ATTN_TERMS: bf16 tensor-core passes of a product (f32 runs as
+# three exact bf16 terms), for the bound.
+ATTN_TOL = {torch.bfloat16: {"atol": 1e-2, "rtol": 1e-2},
+            torch.float32: {"atol": 1e-5, "rtol": 1e-4}}
+ATTN_TERMS = {torch.bfloat16: 1, torch.float32: 3}
+# Window rows beyond the table shape: the pipeline's verify over a cached
+# prefix (the 500-token prompt's first three pages cached on the 14B tier,
+# 116 tokens and a 32-token draft left: 148 positions, bucketed to 192)
+VERIFY_CACHED = 3 * PAGE
+VERIFY_WINDOW = max(PIPE_PROMPT_LENS) + MAX_NEW - VERIFY_CACHED
 # Paged decode rows besides the two table shapes: the scheduler's 8 lanes
 # (contexts 40-660), and one lane at 4100 tokens (33 pages, as many splits)
 SCHED_DECODE_LENS = (40, 128, 129, 250, 380, 500, 640, 660)
@@ -319,7 +336,7 @@ def phase_kernels(dev, rates, timer) -> dict:
     results = {k: [] for k in _KERNELS}
 
     def check(kernel, shape, dtype, out, ref, tol, nbytes, ops, fn_k, fn_p, fn_lib=None,
-              valid=None, reps=None, ops_dtype=None, variant="", fn_dequant=None):
+              valid=None, reps=None, ops_dtype=None, variant="", fn_dequant=None, library=None):
         diff = (out.float() - ref.float()).abs()
         lim = tol["atol"] + tol["rtol"] * ref.float().abs()
         if valid is not None:
@@ -334,6 +351,8 @@ def phase_kernels(dev, rates, timer) -> dict:
                "plain_ms": timer(fn_p, reps),
                "library_ms": timer(fn_lib, reps) if fn_lib else None,
                "bound_ms": b_ms, "bound_by": b_by}
+        if library:
+            row["library"] = library
         if fn_dequant is not None:  # the torch.matmul route INT8 took at M >= 512
             row["dequant_ms"] = timer(fn_dequant, reps)
         row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
@@ -466,9 +485,12 @@ def phase_kernels(dev, rates, timer) -> dict:
         int4_case("int4_matmul_per_channel", "ragged", 7, 1000, 4099, None, dtype)
 
     # paged attention with the 7B and 14B head layouts, pool of N_PAGES pages.
-    # f32 math in both; bf16 outputs are rounded once.
-    attn_tol = {torch.bfloat16: {"atol": 1e-2, "rtol": 1e-2},
-                torch.float32: {"atol": 1e-5, "rtol": 1e-4}}
+    # Scores and P @ V on the tensor cores, f32 activations as three exact bf16
+    # terms, the softmax in f32; bf16 outputs are rounded once (and the
+    # probabilities once). Bound: bytes, or operations at the bf16 tensor-core
+    # peak times the terms (three for f32), the rate the kernels run at.
+    # Library yardstick, window only: scaled_dot_product_attention on K/V
+    # gathered and dequantised outside the timed call, with the same mask.
     for model, dtype in zip(DEFAULT_CASCADE[:2], TIER_DTYPES):
         s = get_spec(model)
         n_kv, G, D = s.n_kv_heads, s.q_group, s.head_dim
@@ -500,39 +522,52 @@ def phase_kernels(dev, rates, timer) -> dict:
             ref = A.paged_attention_ref(*args, sm_scale=sm)
             L = list(lens)
             nbytes = 2 * qd.numel() * esize + tables.numel() * 4 + 4 * len(L) + token_bytes * sum(L)
-            ops = sum(n_kv * G * 4 * D * n for n in L)
+            ops = sum(n_kv * G * 4 * D * n for n in L) * ATTN_TERMS[dtype]
             check("paged_decode", f"{model}: B={len(L)} n_kv={n_kv} G={G} D={D} lens={L}", dtype,
-                  out, ref, attn_tol[dtype], nbytes=nbytes, ops=ops,
+                  out, ref, ATTN_TOL[dtype], nbytes=nbytes, ops=ops, ops_dtype=torch.bfloat16,
                   fn_k=lambda: A.paged_attention(*args, sm_scale=sm),
                   fn_p=lambda: A.paged_attention_ref(*args, sm_scale=sm), variant=variant)
             return tables
+
+        # window: valid rows compared (padding rows past ctx_len are never read)
+        def window_case(variant, dt, tables, offs, wins, W, reps=None):
+            es = torch.empty((), dtype=dt).element_size()
+            offsets = torch.tensor(offs, dtype=torch.int32, device=dev)
+            win = torch.tensor(wins, dtype=torch.int32, device=dev)
+            qw = torch.randn(len(offs), n_kv, W * G, D, generator=g, device=dev).to(dt)
+            wargs = (qw, kp, ks, vp, vs, tables, offsets + win, offsets)
+            out = A.paged_window_attention(*wargs, group=G, sm_scale=sm)
+            ref = A.paged_window_attention_ref(*wargs, group=G, sm_scale=sm)
+            rows = torch.arange(W * G, device=dev)
+            valid = (rows[None, None, :, None] < (win * G)[:, None, None, None]).expand_as(out)
+            # valid query rows in, their outputs out; each lane's ctx_len tokens
+            nbytes = (2 * n_kv * G * sum(wins) * D * es + tables.numel() * 4 + 8 * len(offs)
+                      + token_bytes * sum(o + w for o, w in zip(offs, wins)))
+            ops = sum(n_kv * G * 4 * D * (o + i + 1) for o, w in zip(offs, wins)
+                      for i in range(w)) * ATTN_TERMS[dt]
+            check("paged_window", f"{model}: B={len(offs)} n_kv={n_kv} G={G} W={W} "
+                  f"offsets={list(offs)} win={list(wins)}", dt, out, ref, ATTN_TOL[dt],
+                  nbytes=nbytes, ops=ops, ops_dtype=torch.bfloat16,
+                  fn_k=lambda: A.paged_window_attention(*wargs, group=G, sm_scale=sm),
+                  fn_p=lambda: A.paged_window_attention_ref(*wargs, group=G, sm_scale=sm),
+                  fn_lib=_sdpa_window_call(*wargs, group=G, sm_scale=sm), valid=valid,
+                  variant=variant, reps=reps, library="SDPA on dequantised K/V")
 
         maxp = 10
         tables = decode_case((37, 300, 1000, 1), maxp, "table")
         decode_case(SCHED_DECODE_LENS, SCHED_CONTEXT // PAGE, "scheduler 8 lanes")
         decode_case(LONG_DECODE_LENS, -(-LONG_DECODE_LENS[0] // PAGE), "long context")
 
-        # window: verify-sized windows over cached prefixes; lane 3 parked
-        W = 64
-        offsets = torch.tensor([0, 128, 512, 0], dtype=torch.int32, device=dev)
-        win = torch.tensor([64, 40, 33, 1], dtype=torch.int32, device=dev)
-        ctx = offsets + win
-        qw = torch.randn(4, n_kv, W * G, D, generator=g, device=dev).to(dtype)
-        wargs = (qw, kp, ks, vp, vs, tables, ctx, offsets)
-        out = A.paged_window_attention(*wargs, group=G, sm_scale=sm)
-        ref = A.paged_window_attention_ref(*wargs, group=G, sm_scale=sm)
-        rows = torch.arange(W * G, device=dev)
-        valid = (rows[None, None, :, None] < (win * G)[:, None, None, None]).expand_as(out)
-        offs, wins = offsets.tolist(), win.tolist()
-        # valid query rows in, their outputs out; each lane's ctx_len tokens
-        nbytes = (2 * n_kv * G * sum(wins) * D * esize + tables.numel() * 4 + 32
-                  + token_bytes * sum(o + w for o, w in zip(offs, wins)))
-        ops = sum(n_kv * G * 4 * D * (o + i + 1) for o, w in zip(offs, wins) for i in range(w))
-        check("paged_window", f"{model}: B=4 n_kv={n_kv} G={G} W={W} offsets={offs} "
-              f"win={wins}", dtype, out, ref, attn_tol[dtype], nbytes=nbytes, ops=ops,
-              fn_k=lambda: A.paged_window_attention(*wargs, group=G, sm_scale=sm),
-              fn_p=lambda: A.paged_window_attention_ref(*wargs, group=G, sm_scale=sm),
-              valid=valid, variant="table")
+        # window: verify-sized windows over cached prefixes, lane 3 parked; the
+        # pipeline's verify over a cached prefix (14B heads, both types); a
+        # 512-token prefill through the window path (the tier's type)
+        window_case("table", dtype, tables, (0, 128, 512, 0), (64, 40, 33, 1), 64)
+        one = tables_for((512,), 6)  # one sequence of six pages
+        if model == DEFAULT_CASCADE[1]:
+            for dt in (torch.float32, torch.bfloat16):
+                window_case("verify", dt, one, (VERIFY_CACHED,), (VERIFY_WINDOW,),
+                            _bucket_len(VERIFY_WINDOW, 64), reps=5)
+        window_case("prefill", dtype, one, (0,), (512,), 512, reps=5)
         del kp, vp, ks, vs
     torch.cuda.empty_cache()
     emit({"phase": "kernel_variants", "rows": _variants(results)})
@@ -562,6 +597,26 @@ def _variants(results: dict) -> list:
         row["max_abs_err"] = max(r["max_abs_err"] for r in rows)
         out.append(row)
     return out
+
+
+def _sdpa_window_call(q, kp, ks, vp, vs, tables, ctx, offsets, *, group, sm_scale):
+    """The window's function as one PyTorch call, timed as a yardstick and
+    used nowhere in the port: scaled_dot_product_attention over K/V gathered
+    and dequantised here (outside the timed call) in q's type, with the
+    kernel's causal mask key_pos <= q_pos over the whole gathered table."""
+    B, n_kv, WG, D = q.shape
+    bt = tables.long().clamp(0, kp.shape[1] - 1)
+    L = bt.shape[1] * kp.shape[2]
+
+    def gather(p, s):
+        return (p[:, bt].transpose(0, 1).reshape(B, n_kv, L, D).float()
+                * s[:, bt].transpose(0, 1).reshape(B, n_kv, L)[..., None]).to(q.dtype)
+
+    k, v = gather(kp, ks), gather(vp, vs)
+    q_pos = offsets.long()[:, None] + torch.arange(WG, device=q.device)[None, :] // group
+    mask = (torch.arange(L, device=q.device)[None, None, :] <= q_pos[:, :, None])[:, None]
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=sm_scale)
 
 
 def _dequant_call(x, q, scale):
@@ -1721,7 +1776,8 @@ def phase_step(engines) -> None:
     context lengths: its kernel launches, its time on the card (CUDA events),
     and the device time by kernel from torch.profiler; the device idles for
     the rest of the step (host work, launch gaps). Then the seconds one
-    512-token prompt takes to prefill."""
+    512-token prompt takes to prefill, and that prefill's device time by
+    kernel (the paged window kernel's share where the prefix cache is on)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1761,31 +1817,99 @@ def phase_step(engines) -> None:
             for r in rids:
                 e.allocator.free_request(r)
         # one 512-token prompt through the engine's own prefill (the window
-        # path where the prefix cache is on), one token sampled
+        # path where the prefix cache is on), one token sampled: its seconds,
+        # then the same once more under the profiler for its kernels' shares
         rng = np.random.default_rng(int(zlib.crc32(e.spec.name.encode())))
         fresh = [[int(t) for t in rng.integers(1, e.spec.vocab_size, 512)]]
         _, prefill_s = _call(e.generate, fresh, max_new=1)
-        kernels = sorted(((ev.key, ev.self_device_time_total / 1e3) for ev in prof.key_averages()
-                          if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0),
-                         key=lambda kv: -kv[1])
-        busy = sum(ms for _, ms in kernels) if kernels else None
-        by_kernel = {name: sum(ms for k, ms in kernels if name in k)
-                     for name in ("int8_matmul", "int4_matmul", "splitk_reduce", "w8a8_mma",
-                                  "quant_rows", "paged_decode")}
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_pre:
+            _call(e.generate, fresh, max_new=1)
+
+        def device_ms(p):
+            ks = sorted(((ev.key, ev.self_device_time_total / 1e3) for ev in p.key_averages()
+                         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0),
+                        key=lambda kv: -kv[1])
+            return ks, (sum(ms for _, ms in ks) if ks else None), {
+                name: sum(ms for k, ms in ks if name in k)
+                for name in ("int8_matmul", "int4_matmul", "splitk_reduce", "w8a8_mma",
+                             "quant_rows", "paged_decode", "paged_window")}
+
+        kernels, busy, by_kernel = device_ms(prof)
+        pre_kernels, pre_busy, pre_by_kernel = device_ms(prof_pre)
         weights = f"int{e.params['layers'][0]['qkv_proj'].bits}" + (
             " act_quant" if e.act_quant else "")
         emit({"phase": "step", "tier": e.spec.name, "weights": weights,
               "activations": str(e.params["embed"].dtype), "batch": B, "positions": pos,
               "launches": launches, "step_ms": step_ms, "device_busy_ms": busy,
               "kernel_ms": by_kernel, "prefill_512_tokens_s": prefill_s,
+              "prefill_device_busy_ms": pre_busy, "prefill_kernel_ms": pre_by_kernel,
+              "prefill_top_kernels_ms": [[k[:90], ms] for k, ms in pre_kernels[:6]],
               "idle_share": None if busy is None else max(0.0, 1.0 - busy / step_ms),
               "top_kernels_ms": [[k[:90], ms] for k, ms in kernels[:8]]})
 
 
+def _window_path_shapes(dev, g) -> None:
+    """The paged window kernel against its plain version at every distinct
+    call the paths made (batch, window, offsets, window lengths, query heads
+    per kv head, type); first a line with the histograms of W over the
+    forwards (a forward's layers call it with the same tensors, recorded
+    once) and of the cached pages (offset // page) of every sequence of a
+    forward."""
+    calls = A.paged_window_counter.shapes
+    A.paged_window_counter.shapes = None
+    recs = [(B, W, G, n_kv, D, page, maxp, dt, tuple(o.tolist()), tuple((c - o).tolist()))
+            for B, W, G, n_kv, D, page, maxp, dt, o, c in calls]
+    distinct = sorted(set(recs), key=str)
+    if not distinct:
+        fail("paged_window: the paths launched it at no shape")
+    w_hist, cached_hist = {}, {}  # over every forward, and every sequence of a forward
+    for B, W, G, n_kv, D, page, maxp, dt, offs, wins in recs:
+        w_hist[W] = w_hist.get(W, 0) + 1
+        for o in offs:
+            cached_hist[o // page] = cached_hist.get(o // page, 0) + 1
+    emit({"phase": "path_shapes", "kernel": "paged_window", "forwards": len(calls),
+          "shapes": len(distinct), "W_hist": {str(k): v for k, v in sorted(w_hist.items())},
+          "cached_pages_hist": {str(k): v for k, v in sorted(cached_hist.items())}})
+    worst = {}
+    for B, W, G, n_kv, D, page, maxp, dt, offs, wins in distinct:
+        dtype = getattr(torch, dt.split(".")[-1])
+        n_pages = B * maxp
+        kp = torch.randint(-127, 128, (n_kv, n_pages, page, D), generator=g, device=dev,
+                           dtype=torch.int8)
+        vp = torch.randint(-127, 128, (n_kv, n_pages, page, D), generator=g, device=dev,
+                           dtype=torch.int8)
+        ks = torch.rand(n_kv, n_pages, 1, page, generator=g, device=dev) * 0.02 + 1e-3
+        vs = torch.rand(n_kv, n_pages, 1, page, generator=g, device=dev) * 0.02 + 1e-3
+        tables = torch.randperm(n_pages, generator=g, device=dev).view(B, maxp).to(torch.int32)
+        offsets = torch.tensor(offs, dtype=torch.int32, device=dev)
+        win = torch.tensor(wins, dtype=torch.int32, device=dev)
+        q = torch.randn(B, n_kv, W * G, D, generator=g, device=dev).to(dtype)
+        args = (q, kp, ks, vp, vs, tables, offsets + win, offsets)
+        out = A.paged_window_attention(*args, group=G, sm_scale=D ** -0.5).float()
+        ref = A.paged_window_attention_ref(*args, group=G, sm_scale=D ** -0.5).float()
+        tol = ATTN_TOL[dtype]
+        for b in range(B):
+            r = int(wins[b]) * G
+            diff = (out[b, :, :r] - ref[b, :, :r]).abs()
+            if not torch.isfinite(out[b]).all() or bool(
+                    (diff > tol["atol"] + tol["rtol"] * ref[b, :, :r].abs()).any()):
+                fail(f"paged_window B={B} W={W} G={G} offsets={offs} wins={wins} {dt}: kernel "
+                     f"disagrees with its plain version on the path's shape "
+                     f"(max abs err {float(diff.max())})")
+            if r:
+                worst[dt] = max(worst.get(dt, 0.0), float(diff.max()))
+        del kp, vp, ks, vs, q, out, ref
+    torch.cuda.empty_cache()
+    emit({"phase": "path_shapes", "kernel": "paged_window", "shapes": len(distinct),
+          "max_abs_err": worst, "tol": {str(k): v for k, v in ATTN_TOL.items()}})
+
+
 def phase_path_shapes(dev) -> None:
     """Each matmul kernel against its plain version at every distinct shape
-    the paths launched it at (collected by the wrappers' counters)."""
+    the paths launched it at (collected by the wrappers' counters), and the
+    paged window kernel at every distinct call."""
     g = torch.Generator(device=dev).manual_seed(9)
+    _window_path_shapes(dev, g)
     # W8A8: bit for bit, in f32 and in bf16 (both round an equal f32 once)
     shapes = sorted(MQ.w8a8_matmul_counter.shapes, key=str)
     MQ.w8a8_matmul_counter.shapes = None
@@ -1851,7 +1975,7 @@ def main() -> int:
     kernel_rows = phase_kernels(dev, rates, Timer(dev))
     phase_reference(dev)
     phase_reference_sched(dev)
-    for k in _MATMULS:
+    for k in (*_MATMULS, "paged_window"):
         _KERNELS[k]["counter"].shapes = set()
     paths = {}
     paths["serve"], engines = phase_serve(dev)

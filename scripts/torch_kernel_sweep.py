@@ -1,36 +1,46 @@
 #!/usr/bin/env python3
 """Time the PyTorch port's INT8 matmul and paged attention kernels on one
-NVIDIA GPU: at their table shapes, and at each value of four choices.
+NVIDIA GPU: at their table shapes, and at each value of five choices.
 
     python3 scripts/torch_kernel_sweep.py [--root DIR] [--tag NAME] [--pps 1 2 4]
-        [--int8-blocks 2,16 4,16] [--int8-stages 3 4] [--int8-warps 8,4 4,4]
+        [--window-rows 16 32 64] [--int8-blocks 2,16 4,16] [--int8-stages 3 4]
+        [--int8-warps 8,4 4,4]
 
 Table: the INT8 kernel at ``chip_smoke.py``'s ten decode shapes (Qwen2.5-7B
 projections with bf16 x, 14B with f32 x) at M = 1 and 4, and the paged decode
 kernel at its rows (7B heads in bf16, 14B in f32: lengths 37/300/1000/1, the
 scheduler's 8 lanes, one lane of 4100 tokens, one lane of 545 tokens) and the
-window kernel at its table shape. The summary adds up one decode step's INT8
-and paged decode time per model (``decode_step_us``): at M = 1 with the lane
-of 545 tokens, at M = 4 with the table's four lanes. ``--root`` imports
-``adaptive_sd_tpu_torch`` from another checkout (an unpacked parent commit),
-so that two versions are timed on one card in one call: run parent, change,
-change, parent.
+window kernel at three shapes: its table shape (both models), the pipeline's
+verify over a cached prefix (14B heads, f32 and bf16: 148 positions after 384
+cached tokens, bucketed to 192) and a 512-token prefill through the window
+path (7B heads in bf16, 14B heads in f32); each attention row is held against
+its plain version (the window's valid rows only). ``chip_smoke.py`` gives the
+same rows' bounds, plain times and library yardstick. The summary adds up one
+decode step's INT8 and paged decode time per model (``decode_step_us``): at
+M = 1 with the lane of 545 tokens, at M = 4 with the table's four lanes.
+``--root`` imports ``adaptive_sd_tpu_torch`` from another checkout (an
+unpacked parent commit), so that two versions are timed on one card in one
+call: run parent, change, change, parent.
 
 Choices (for the package under the repository only; empty lists skip them):
 
 1. ``--pps``: the paged kernels' pages a split (``kPagesPerSplit`` of
    ``csrc/paged_attention.cuh``).
-2. ``--int8-blocks``: the INT8 K split's targets of decode blocks an SM
+2. ``--window-rows``: the window kernel's query rows a block
+   (``kWindowRows`` of ``csrc/paged_window.cu``; the wrapper reads it from
+   the library it launches).
+3. ``--int8-blocks``: the INT8 K split's targets of decode blocks an SM
    (``ops/matmul_q.py::_INT8_BLOCKS_PER_SM``), each value a pair "few,wide"
    such as 2,16.
-3. ``--int8-stages``: the INT8 decode tile's ring depth (``kDecodeStages`` of
+4. ``--int8-stages``: the INT8 decode tile's ring depth (``kDecodeStages`` of
    ``csrc/matmul_int8.cu``).
-4. ``--int8-warps``: the INT8 decode tile's warps for bf16 and for f32 x
+5. ``--int8-warps``: the INT8 decode tile's warps for bf16 and for f32 x
    (``kDecodeWarpsBf16``, ``kDecodeWarpsF32``), each value a pair such as 8,4.
 
 A value of a source constant is built from a copy of ``csrc/`` with that
 constant's line changed, in ``adaptive_sd_tpu_torch/build/variant-<value>/``
-(one nvcc a source, all at once); the sources themselves are not touched.
+(one nvcc a source, all at once) and loaded in place of the package's own
+library while it is timed; the sources themselves are not touched.
 
 Each version or value is held against the plain version before it is timed;
 values run in turns (the list, then reversed). The timer is chip_smoke.py's:
@@ -65,6 +75,7 @@ DECODE_ROWS = (("table", (37, 300, 1000, 1)), ("scheduler 8 lanes",
                (40, 128, 129, 250, 380, 500, 640, 660)), ("long context", (4100, 37, 300, 1)),
                ("one lane", (545,)))
 TOL = {torch.bfloat16: dict(rtol=1e-2, atol=2e-2), torch.float32: dict(rtol=1e-4, atol=1e-4)}
+ATTN_TOL = {torch.bfloat16: dict(rtol=1e-2, atol=1e-2), torch.float32: dict(rtol=1e-4, atol=1e-5)}
 
 
 class Timer:
@@ -104,7 +115,21 @@ def int8_rows(dev, g):
 
 
 def attn_rows(dev, g):
+    """(label, decode?, args, kwargs, valid rows or None)"""
     out = []
+
+    def window(label, pages, n_kv, G, dtype, table, offs, wins, W):
+        D = 128
+        offsets = torch.tensor(offs, dtype=torch.int32, device=dev)
+        ctx = offsets + torch.tensor(wins, dtype=torch.int32, device=dev)
+        qw = torch.randn(len(offs), n_kv, W * G, D, generator=g, device=dev).to(dtype)
+        rows = torch.arange(W * G, device=dev)
+        n_valid = torch.tensor(wins, device=dev) * G
+        valid = (rows[None, None, :, None] < n_valid[:, None, None, None]).expand(
+            len(offs), n_kv, W * G, D)
+        out.append((label, False, (qw, *pages, table, ctx, offsets),
+                    dict(group=G, sm_scale=D ** -0.5), valid))
+
     for model, dtype, G, n_kv, *_ in MODELS:
         D = 128
         pages = (torch.randint(-127, 128, (n_kv, N_PAGES, PAGE, D), generator=g, device=dev,
@@ -124,12 +149,16 @@ def attn_rows(dev, g):
             q = torch.randn(len(lens), n_kv, G, D, generator=g, device=dev).to(dtype)
             lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
             out.append((f"decode {model} {label}", True, (q, *pages, tables, lens_t),
-                        dict(sm_scale=D ** -0.5)))
-        offsets = torch.tensor([0, 128, 512, 0], dtype=torch.int32, device=dev)
-        ctx = offsets + torch.tensor([64, 40, 33, 1], dtype=torch.int32, device=dev)
-        qw = torch.randn(4, n_kv, 64 * G, D, generator=g, device=dev).to(dtype)
-        out.append((f"window {model} table", False, (qw, *pages, table, ctx, offsets),
-                    dict(group=G, sm_scale=D ** -0.5)))
+                        dict(sm_scale=D ** -0.5), None))
+        window(f"window {model} table", pages, n_kv, G, dtype, table, (0, 128, 512, 0),
+               (64, 40, 33, 1), 64)
+        one = table[:1, :6].contiguous()  # one sequence, 6 pages
+        if model == "qwen2.5-14b":
+            for dt in (torch.float32, torch.bfloat16):
+                window(f"window {model} verify {str(dt)[6:]}", pages, n_kv, G, dt, one, (384,),
+                       (148,), 192)
+        window(f"window {model} prefill {str(dtype)[6:]}", pages, n_kv, G, dtype, one, (0,),
+               (512,), 512)
     return out
 
 
@@ -140,20 +169,21 @@ def time_all(MQ, A, timer, int8, attn, tag, us):
         t = timer(lambda: MQ.int8_matmul_cuda(x, q, scale))
         us.setdefault(tag, {}).setdefault(label, []).append(t)
         print(json.dumps({"version": tag, "row": label, "us": t}), flush=True)
-    for label, decode, a, kw in attn:
+    for label, decode, a, kw, valid in attn:
         fn = A.paged_attention if decode else A.paged_window_attention
-        if decode:  # window rows past ctx_len are padding, never read
-            torch.testing.assert_close(fn(*a, **kw).float(),
-                                       A.paged_attention_ref(*a, **kw).float(),
-                                       rtol=1e-2, atol=1e-2)
+        ref = (A.paged_attention_ref if decode else A.paged_window_attention_ref)(*a, **kw)
+        got = fn(*a, **kw)
+        if valid is not None:  # window rows past ctx_len are padding, never read
+            got, ref = got[valid], ref[valid]
+        torch.testing.assert_close(got.float(), ref.float(), **ATTN_TOL[a[0].dtype])
         t = timer(lambda: fn(*a, **kw))
         us.setdefault(tag, {}).setdefault(label, []).append(t)
         print(json.dumps({"version": tag, "row": label, "us": t}), flush=True)
 
 
 def build_variants(_kernels, variants: dict, names) -> dict:
-    """{tag: {kernel name: C function}}: for each tag, the kernels built from
-    a copy of csrc/ in build/variant-<tag>/ whose lines ``constexpr int
+    """{tag: {kernel name: loaded library}}: for each tag, the kernels built
+    from a copy of csrc/ in build/variant-<tag>/ whose lines ``constexpr int
     <constant> = ...;`` are set to the tag's {constant: value}."""
     nvcc, procs = _kernels.nvcc_path(), []
     for n, values in variants.items():
@@ -173,16 +203,24 @@ def build_variants(_kernels, variants: dict, names) -> dict:
             lib = out / f"lib{name}.so"
             cmd = [nvcc, *_kernels.NVCC_FLAGS, "-o", str(lib), str(src / _kernels.KERNELS[name][0])]
             procs.append((n, name, lib, subprocess.Popen(cmd, stderr=subprocess.PIPE, text=True)))
-    funcs = {}
+    libs = {}
     for n, name, lib, proc in procs:
         _, err = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"nvcc failed for {name} at {n}:\n{err}")
-        _, symbol, argtypes = _kernels.KERNELS[name]
-        fn = getattr(ctypes.CDLL(str(lib)), symbol)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        funcs.setdefault(n, {})[name] = fn
-    return funcs
+        libs.setdefault(n, {})[name] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def use(_kernels, libs: dict) -> None:
+    """Launch the kernels of ``libs`` ({name: library}) in place of the
+    package's own; a name given None goes back to the package's library."""
+    for name, lib in libs.items():
+        _kernels._funcs.pop(name, None)
+        if lib is None:
+            _kernels._libs.pop(name, None)
+        else:
+            _kernels._libs[name] = lib
 
 
 def host_us(fn, n=50) -> float:
@@ -204,7 +242,7 @@ def host_rows(MQ, A, Q, int8, attn, dev, g) -> dict:
     lanes): the qkv projection, paged decode and RMSNorm, and RMSNorm over a
     300-row window."""
     _, x, q, scale = next(r for r in int8 if r[0] == "int8 qwen2.5-7b:qkv M=4")
-    _, _, a, kw = next(r for r in attn if r[0] == "decode qwen2.5-7b table")
+    _, _, a, kw, _ = next(r for r in attn if r[0] == "decode qwen2.5-7b table")
     w = torch.randn(3584, generator=g, device=dev).to(torch.bfloat16)
     h4, h300 = (torch.randn(n, 3584, generator=g, device=dev).to(torch.bfloat16) for n in (4, 300))
     return {"int8 qkv M=4": host_us(lambda: MQ.int8_matmul_cuda(x, q, scale)),
@@ -236,6 +274,7 @@ def main() -> int:
     ap.add_argument("--root", default=str(REPO))
     ap.add_argument("--tag", default=None)
     ap.add_argument("--pps", type=int, nargs="*", default=[])
+    ap.add_argument("--window-rows", type=int, nargs="*", default=[])
     ap.add_argument("--int8-blocks", nargs="*", default=[])
     ap.add_argument("--int8-stages", type=int, nargs="*", default=[])
     ap.add_argument("--int8-warps", nargs="*", default=[])
@@ -265,17 +304,25 @@ def main() -> int:
                                               map(int, w.split(","))))
            for w in args.int8_warps}}
     if int8_variants:
-        funcs = build_variants(_kernels, int8_variants, ("int8_matmul",))
+        libs = build_variants(_kernels, int8_variants, ("int8_matmul",))
         for n in [*int8_variants, *reversed(int8_variants)]:
-            _kernels._funcs.update(funcs[n])
+            use(_kernels, libs[n])
             time_all(MQ, A, timer, int8, [], n, us)
-        _kernels._funcs.pop("int8_matmul")
+        use(_kernels, {"int8_matmul": None})
     if args.pps:
         variants = {f"pages_per_split={n}": {"kPagesPerSplit": n} for n in args.pps}
-        funcs = build_variants(_kernels, variants, ("paged_decode", "paged_window"))
+        libs = build_variants(_kernels, variants, ("paged_decode", "paged_window"))
         for n in [*variants, *reversed(variants)]:
-            _kernels._funcs.update(funcs[n])
+            use(_kernels, libs[n])
             time_all(MQ, A, timer, [], attn, n, us)
+        use(_kernels, {"paged_decode": None, "paged_window": None})
+    if args.window_rows:
+        variants = {f"window_rows={n}": {"kWindowRows": n} for n in args.window_rows}
+        libs = build_variants(_kernels, variants, ("paged_window",))
+        for n in [*variants, *reversed(variants)]:
+            use(_kernels, libs[n])
+            time_all(MQ, A, timer, [], [r for r in attn if not r[1]], n, us)
+        use(_kernels, {"paged_window": None})
     sums = {tag: {f"int8 M={m}": sum(sum(v) / len(v) for k, v in rows.items()
                                      if k.startswith("int8") and k.endswith(f"M={m}"))
                   for m in (1, 4)} for tag, rows in us.items()}

@@ -148,26 +148,80 @@ def test_paged_decode_kernel_matches_plain(cuda, G, page):
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("G,W", [(7, 33), (5, 64), (2, 5)])
-def test_paged_window_kernel_matches_plain(cuda, G, W):
+# (G, W, dtype, n_kv, offsets, window lengths): verify-sized windows over
+# cached prefixes (a lane with padding rows, a parked lane); the pipeline's
+# verify over a cached prefix (Qwen2.5-14B heads, 148 positions bucketed to
+# 192 after 384 cached tokens); a 512-token prefill through the window path
+# (7B heads in bf16, 14B heads in f32)
+_WINDOW_SHAPES = [
+    (7, 33, torch.float32, 2, (256, 37, 0), (33, 16, 1)),
+    (5, 64, torch.float32, 2, (256, 37, 0), (64, 32, 1)),
+    (2, 5, torch.float32, 2, (256, 37, 0), (5, 2, 1)),
+    (5, 192, torch.float32, 8, (384,), (148,)),
+    (5, 192, torch.bfloat16, 8, (384,), (148,)),
+    (7, 512, torch.bfloat16, 4, (0,), (512,)),
+    (5, 512, torch.float32, 8, (0,), (512,)),
+]
+
+
+@pytest.mark.parametrize("G,W,dtype,n_kv,offsets,wins", _WINDOW_SHAPES)
+def test_paged_window_kernel_matches_plain(cuda, G, W, dtype, n_kv, offsets, wins):
     g = torch.Generator(device=cuda).manual_seed(G + W)
-    B, n_kv, D, page, n_pages = 3, 2, 128, 128, 12
+    B, D, page, n_pages = len(offsets), 128, 128, 12
     kp, ks, vp, vs = _pages(g, n_kv, n_pages, page, D, cuda)
-    q = torch.randn(B, n_kv, W * G, D, generator=g, device=cuda)
-    tables = torch.tensor([[3, 1, 7, 5], [9, 10, 11, 0], [n_pages] * 4], dtype=torch.int32,
-                          device=cuda)
-    offsets = torch.tensor([256, 37, 0], dtype=torch.int32, device=cuda)
-    win = torch.tensor([W, max(W // 2, 1), 1], dtype=torch.int32, device=cuda)
+    q = torch.randn(B, n_kv, W * G, D, generator=g, device=cuda).to(dtype)
+    tables = torch.tensor([[3, 1, 7, 5, 2], [9, 10, 11, 0, 4], [n_pages] * 5][:B],
+                          dtype=torch.int32, device=cuda)
+    offsets = torch.tensor(offsets, dtype=torch.int32, device=cuda)
+    win = torch.tensor(wins, dtype=torch.int32, device=cuda)
     ctx = offsets + win
     out = A.paged_window_attention(q, kp, ks, vp, vs, tables, ctx, offsets, group=G,
                                    sm_scale=D ** -0.5)
     ref = A.paged_window_attention_ref(q, kp, ks, vp, vs, tables, ctx, offsets, group=G,
                                        sm_scale=D ** -0.5)
     torch.cuda.synchronize()
-    assert torch.isfinite(out).all()
+    assert torch.isfinite(out.float()).all()
+    tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
     for b in range(B):
         r = int(win[b]) * G
-        torch.testing.assert_close(out[b, :, :r], ref[b, :, :r], rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(out[b, :, :r].float(), ref[b, :, :r].float(), **tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_window_long_context_workspace(cuda, dtype, monkeypatch):
+    """A window of 2048 positions over a 64-page table (contexts of 8048 and
+    2048 tokens): the partials of every tile would take 1.9 GB, so the call
+    runs as launches over ranges of row tiles whose workspace stays within
+    WINDOW_WS_BYTES. The result matches the plain version on valid rows and
+    equals, bit for bit, the same call in one launch with the whole
+    workspace (tiles are independent)."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    B, n_kv, G, D, page, maxp, W = 2, 2, 7, 128, 128, 64, 2048
+    n_pages = B * maxp
+    kp, ks, vp, vs = _pages(g, n_kv, n_pages, page, D, cuda)
+    tables = torch.randperm(n_pages, generator=g, device=cuda).view(B, maxp).to(torch.int32)
+    offsets = torch.tensor([6000, 0], dtype=torch.int32, device=cuda)
+    ctx = offsets + W
+    q = torch.randn(B, n_kv, W * G, D, generator=g, device=cuda).to(dtype)
+    args = (q, kp, ks, vp, vs, tables, ctx, offsets)
+    n_tiles, tiles, _, ws, _ = A.window_plan(B, n_kv, W * G, maxp, D, A.window_rows())
+    assert tiles < n_tiles and 4 * ws <= A.WINDOW_WS_BYTES
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    before = torch.cuda.memory_allocated(cuda)
+    launches = A.paged_window_counter.launches
+    out = A.paged_window_attention(*args, group=G, sm_scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert A.paged_window_counter.launches - launches == -(-n_tiles // tiles)
+    # the output, the workspace and at most a fresh buffer of tile counters
+    took = torch.cuda.max_memory_allocated(cuda) - before
+    assert took <= out.numel() * out.element_size() + A.WINDOW_WS_BYTES + (1 << 20), took
+    monkeypatch.setattr(A, "WINDOW_WS_BYTES", 1 << 40)
+    assert A.window_plan(B, n_kv, W * G, maxp, D, A.window_rows())[1] == n_tiles
+    assert torch.equal(A.paged_window_attention(*args, group=G, sm_scale=D ** -0.5), out)
+    ref = A.paged_window_attention_ref(*args, group=G, sm_scale=D ** -0.5)
+    tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
 
 
 def _engine_on_card_matches_cpu(cuda, params, prefix_cache, monkeypatch, accept_all):
@@ -402,7 +456,7 @@ def test_w8a8_tile_edges(cuda, M, dtype):
             assert torch.equal(out, MQ.quantized_matmul_w8a8_ref(x, q, t.scale)), (K, N)
 
 
-@pytest.mark.parametrize("kernel", ["int4", "w8a8", "int8", "paged_decode"])
+@pytest.mark.parametrize("kernel", ["int4", "w8a8", "int8", "paged_decode", "paged_window"])
 def test_two_streams_give_the_sequential_results(cuda, kernel):
     """Two calls at once on two streams (their split-K or split workspaces
     are the calls' own, their tile counters the streams' own) give the
@@ -424,6 +478,15 @@ def test_two_streams_give_the_sequential_results(cuda, kernel):
             x, *pages, tables.view(4, 8), torch.tensor([900, 1, 300, 1024], dtype=torch.int32,
                                                        device=cuda), sm_scale=D ** -0.5)
         xs = [torch.randn(4, n_kv, G, D, generator=g, device=cuda) for G in (5, 7, 8)]
+    elif kernel == "paged_window":
+        n_kv, D, page, n_pages = 8, 128, 128, 64
+        pages = _pages(g, n_kv, n_pages, page, D, cuda)
+        tables = torch.randperm(n_pages, generator=g, device=cuda)[:32].to(torch.int32)
+        offs = torch.tensor([800, 0, 300, 900], dtype=torch.int32, device=cuda)
+        ctx = offs + torch.tensor([100, 1, 64, 24], dtype=torch.int32, device=cuda)
+        fn = lambda x: A.paged_window_attention(  # noqa: E731
+            x, *pages, tables.view(4, 8), ctx, offs, group=5, sm_scale=D ** -0.5)
+        xs = [torch.randn(4, n_kv, W * 5, D, generator=g, device=cuda) for W in (24, 64, 100)]
     else:
         xs = [torch.randn(M, K, generator=g, device=cuda) for M in (4, 8, 300)]
     want = [fn(x) for x in xs]
@@ -443,12 +506,12 @@ def test_two_streams_give_the_sequential_results(cuda, kernel):
                 assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("kernel", ["int8", "paged_decode"])
+@pytest.mark.parametrize("kernel", ["int8", "paged_decode", "paged_window"])
 def test_split_counters_are_left_zero(cuda, kernel):
-    """The INT8 decode tiles and the paged decode kernel find a tile's last
-    block with the stream's tile counters, which that block returns to 0:
-    after calls of every split count the buffer is zero again, and a call
-    repeated many times gives the first call's result."""
+    """The INT8 decode tiles and the paged decode and window kernels find a
+    tile's last block with the stream's tile counters, which that block
+    returns to 0: after calls of every split count the buffer is zero again,
+    and a call repeated many times gives the first call's result."""
     g = torch.Generator(device=cuda).manual_seed(12)
     if kernel == "int8":
         t = quantize_int8(torch.randn(5120, 7168, generator=g, device=cuda))
@@ -460,9 +523,15 @@ def test_split_counters_are_left_zero(cuda, kernel):
         pages = _pages(g, n_kv, n_pages, page, D, cuda)
         tables = torch.randperm(n_pages, generator=g, device=cuda)[:32].to(torch.int32)
         lens = torch.tensor([900, 1, 300, 1024], dtype=torch.int32, device=cuda)
-        q = torch.randn(4, n_kv, 5, D, generator=g, device=cuda)
-        fn = lambda: A.paged_attention(q, *pages, tables.view(4, 8), lens,  # noqa: E731
-                                       sm_scale=D ** -0.5)
+        if kernel == "paged_decode":
+            q = torch.randn(4, n_kv, 5, D, generator=g, device=cuda)
+            fn = lambda: A.paged_attention(q, *pages, tables.view(4, 8), lens,  # noqa: E731
+                                           sm_scale=D ** -0.5)
+        else:  # windows of 100, 1, 64 and 24 positions ending at the same lengths
+            offs = lens - torch.tensor([100, 1, 64, 24], dtype=torch.int32, device=cuda)
+            q = torch.randn(4, n_kv, 100 * 5, D, generator=g, device=cuda)
+            fn = lambda: A.paged_window_attention(  # noqa: E731
+                q, *pages, tables.view(4, 8), lens, offs, group=5, sm_scale=D ** -0.5)
     first = fn()
     for _ in range(20):
         assert torch.equal(fn(), first)
@@ -534,16 +603,19 @@ def test_int8_row_results_do_not_depend_on_m(cuda, dtype):
         assert torch.equal(MQ.quantized_matmul(x[r], t.q, t.scale), full[r]), r
 
 
+@pytest.mark.parametrize("W", [5, 70])
 @pytest.mark.parametrize("G", [5, 7, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_paged_decode_row_equals_window_row(cuda, G, dtype):
+def test_paged_decode_row_equals_window_row(cuda, G, dtype, W):
     """A query row's decode output equals, bit for bit, the window kernel's
     output for the same query position: both walk the same page splits with
-    the same arithmetic and merge them in the same order. Contexts on both
-    sides of split boundaries, one long enough for many splits, and a lane
-    parked on the sentinel page; the window holds the row among others
-    (positions before and after it)."""
-    g = torch.Generator(device=cuda).manual_seed(G)
+    the same split body (a row's MMA column gives it the same bits in any
+    n-tile) and merge them in the same order. Contexts on both sides of split
+    boundaries, one long enough for many splits, and a lane parked on the
+    sentinel page; the window holds the row among others (positions before
+    and after it): in a window of 5, or in one of 70 spread over several row
+    tiles, where the row's G query heads straddle two tiles (G = 5, 7)."""
+    g = torch.Generator(device=cuda).manual_seed(G + W)
     n_kv, D, page, n_pages, maxp = 2, 128, 128, 80, 34
     kp, ks, vp, vs = _pages(g, n_kv, n_pages, page, D, cuda)
     lens = [127, 128, 129, 1000, 4100, 1]
@@ -553,8 +625,9 @@ def test_paged_decode_row_equals_window_row(cuda, G, dtype):
     seq = torch.tensor(lens, dtype=torch.int32, device=cuda)
     q = torch.randn(B, n_kv, G, D, generator=g, device=cuda).to(dtype)
     dec = A.paged_attention(q, kp, ks, vp, vs, tables, seq, sm_scale=D ** -0.5)
-    W = 5  # query positions offset .. offset + W - 1, the row of interest at w = 2
-    offsets = (seq - 3).clamp(min=0)
+    # the row of interest at w = 2, or where its heads cross the first row tile
+    at = 2 if W == 5 else -(-A.window_rows() // G) - 1
+    offsets = (seq - 1 - at).clamp(min=0)
     wi = seq - 1 - offsets
     qw = torch.randn(B, n_kv, W, G, D, generator=g, device=cuda).to(dtype)
     qw[torch.arange(B), :, wi.long()] = q

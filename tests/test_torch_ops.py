@@ -184,6 +184,77 @@ class TestPagedAttention:
             np.testing.assert_allclose(out[b, :, :r], ker[b, :, :r], rtol=1e-5, atol=1e-5)
         assert np.isfinite(out).all()
 
+    @pytest.mark.parametrize("G", [5, 7])
+    def test_window_ref_matches_pallas_kernel_across_pages(self, G):
+        """Windows that cross three or more pages (page 16), with offsets on
+        and off page boundaries and a parked lane."""
+        rng = np.random.default_rng(45 + G)
+        B, n_kv, D, page, n_pages, maxp, W = 4, 2, 32, 16, 14, 6, 40
+        kq, ks, vq, vs = _paged_inputs(rng, n_kv, n_pages, page, D)
+        q = rng.normal(size=(B, n_kv, W * G, D)).astype(np.float32)
+        tables = np.array([[0, 3, 5, 7, 9, 11], [13, 1, 2, 4, 6, 8], [10, 12, 0, 1, 2, 3],
+                           [n_pages] * maxp], np.int32)
+        offsets = np.array([32, 13, 0, 0], np.int32)   # on a boundary, off one, none; parked
+        win_lens = np.array([W, 35, 40, 1], np.int32)  # windows over 3-4 pages
+        ctx = offsets + win_lens
+        args = (q, kq, ks, vq, vs, tables, ctx, offsets)
+        ker = np.asarray(jattn.paged_window_attention(
+            *map(jnp.asarray, args), group=G, sm_scale=D ** -0.5, interpret=True))
+        out = tattn.paged_window_attention(*map(_t, args), group=G, sm_scale=D ** -0.5).numpy()
+        for b in range(B):  # only valid rows: padding rows are never read downstream
+            r = win_lens[b] * G
+            np.testing.assert_allclose(out[b, :, :r], ker[b, :, :r], rtol=1e-5, atol=1e-5)
+        assert np.isfinite(out).all()
+
+    @pytest.mark.parametrize("R", [16, 32])
+    @pytest.mark.parametrize("G,W,offset,win,page,max_pages", [
+        (5, 192, 384, 148, 128, 6), (7, 512, 0, 512, 128, 6), (5, 64, 128, 40, 128, 10),
+        (7, 64, 512, 33, 128, 10), (8, 70, 4030, 70, 128, 34), (2, 40, 13, 35, 16, 6),
+        (5, 10, 0, 1, 16, 1), (7, 1024, 6000, 1024, 128, 64)])
+    def test_window_plan_covers_rows_and_pages_once(self, G, W, offset, win, page, max_pages,
+                                                    R):
+        """The window kernel's host-side sizing for row tiles of R rows: row
+        tiles cover every row once and the launches every tile once; a
+        tile's splits cover each page of each of its valid rows (the pages
+        below ctx_len up to the row's own position) exactly once, in
+        decode_splits' order and boundaries; the grid's split axis holds the
+        largest split count, and a launch's workspace a partial of every
+        split of each of its tiles, within WINDOW_WS_BYTES unless one tile
+        alone needs more (the long window: 6-13 MB a tile, 2.9 GB for all)."""
+        B, n_kv, D = 3, 4, 128
+        WG, ctx = W * G, offset + win
+        n_tiles, tiles, n_splits, ws, n_counters = tattn.window_plan(B, n_kv, WG, max_pages,
+                                                                     D, R)
+        assert n_tiles * R >= WG > (n_tiles - 1) * R
+        launched = [t for t0 in range(0, n_tiles, tiles)
+                    for t in range(t0, min(n_tiles, t0 + tiles))]
+        assert launched == list(range(n_tiles))
+        seen, most = {}, 0
+        for t in range(n_tiles):
+            splits = tattn.window_tile_splits(t, R, WG, G, offset, ctx, max_pages, page)
+            most = max(most, len(splits))
+            assert splits == tattn.decode_splits(ctx, max_pages, page)[: len(splits)]
+            for r in range(t * R, min(WG, (t + 1) * R)):
+                for a, b in splits:
+                    for p in range(a, b):
+                        if p * page <= offset + r // G:
+                            seen[r, p] = seen.get((r, p), 0) + 1
+        want = {(r, p) for r in range(WG) if offset + r // G < ctx
+                for p in range(min(-(-ctx // page), max_pages)) if p * page <= offset + r // G}
+        assert {k for k in seen if k[0] < win * G} == want
+        assert all(v == 1 for v in seen.values())
+        assert most <= n_splits
+        if n_splits > 1:
+            per_tile = B * n_kv * n_splits * R * (D + 2)
+            assert per_tile >= B * n_kv * most * R * (D + 2)
+            assert ws == tiles * per_tile and n_counters == B * n_kv * tiles
+            assert 4 * ws <= max(tattn.WINDOW_WS_BYTES, 4 * per_tile)
+            if tiles < n_tiles:  # cut into launches: no fewer would fit
+                assert 4 * per_tile * -(-n_tiles // (-(-n_tiles // tiles) - 1)) > \
+                    tattn.WINDOW_WS_BYTES
+        else:
+            assert ws == n_counters == 0 and most <= 1 and tiles == n_tiles
+
     @pytest.mark.parametrize("page", [16, 128])
     def test_decode_splits_cover_pages_once(self, page):
         """The kernels' split plan: every page below ctx_len (within the
