@@ -129,6 +129,19 @@ def inline_decision(
     return k > stage_index, p_hat
 
 
+def train_inline_predictor(
+    X64: np.ndarray, y: np.ndarray, **fit_kwargs
+) -> MLPQualityPredictor:
+    """Train the inline head on the 16 device-computable columns of the
+    full 64-dim training matrix (one dataset serves both predictors).
+    ``fit_kwargs`` go to :meth:`MLPQualityPredictor.fit` (``device`` too:
+    the card unless the caller passes another)."""
+    # embed_dim=0: the on-device graph has no text to hash — dense-only head
+    m = MLPQualityPredictor(feature_dim=INLINE_DIM, hidden=(64, 32), embed_dim=0)
+    m.fit(np.asarray(X64)[:, INLINE_SLICE], y, **fit_kwargs)
+    return m
+
+
 def policy_from_predictor(
     predictor: MLPQualityPredictor,
     costs,

@@ -7,15 +7,17 @@ and the missing ``src/models/predictor.py`` contract (predict(prompt, draft,
 logprobs, stage) -> prob, loaded from a checkpoint,
 src/serving/server.py:168-176). The forward pass is a plain tensor function,
 so the stopping decision can be evaluated on the device right after the
-decode loop; the serving hot path predicts on the host in numpy. ``save`` and
-``load`` use the JAX class's ``.npz`` layout, so either package reads the
-other's files. Training (``fit``) belongs to the training slice of the port
-and raises here.
+decode loop; the serving hot path predicts on the host in numpy. Training
+(``fit``) runs on the card by default: AdamW + cosine decay + global-norm
+clipping + early stopping + k-fold CV + Platt calibration, the JAX class's
+optax recipe step for step. ``save`` and ``load`` use the JAX class's
+``.npz`` layout, so either package reads the other's files.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import time
 from dataclasses import dataclass, field
@@ -24,8 +26,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..core.device import resolve_device
 from ..core.types import PredictionResult
-from .embed import EMBED_VOCAB, hash_batch, pool_np
+from .embed import EMBED_LEN, EMBED_VOCAB, hash_batch, pool_np
 from .features import (
     DRAFT_LEN_IDX,
     FEATURE_DIM,
@@ -49,8 +52,8 @@ def _t32(a) -> torch.Tensor:
 
 def _init_mlp(generator: torch.Generator, sizes: Sequence[int], embed_dim: int = 0) -> Params:
     """He-normal weights from a seeded ``torch.Generator`` (CPU). The numbers
-    differ from the JAX class's for the same seed; trained or JAX-made
-    weights come in through ``load`` / :func:`predictor_from_jax`."""
+    differ from the JAX class's for the same seed; JAX-made weights come in
+    through ``load`` / :func:`predictor_from_jax`."""
     params = {"w": [], "b": []}
     for fan_in, fan_out in zip(sizes[:-1], sizes[1:]):
         w = torch.randn((fan_in, fan_out), generator=generator) * (2.0 / fan_in) ** 0.5
@@ -234,16 +237,221 @@ class MLPQualityPredictor:
             mv(torch.from_numpy(np.asarray(self.std, np.float32)))
 
     # -- training ------------------------------------------------------------
-    def fit(self, X, y, **kwargs) -> TrainReport:
-        """Training (AdamW + cosine schedule + early stopping + Platt
-        calibration in the JAX class) is not ported yet: it comes with the
-        training slice of the port. Train with
-        ``adaptive_sd_tpu.predict.MLPQualityPredictor.fit``, ``save``, and
-        ``load`` the file here."""
-        raise NotImplementedError(
-            "MLPQualityPredictor.fit waits for the training slice of the port; "
-            "load a predictor saved by the JAX class instead"
+    def fit(
+        self,
+        X: np.ndarray,
+        y: np.ndarray,
+        *,
+        epochs: int = 100,
+        batch_size: int = 256,
+        lr: float = 1e-3,
+        weight_decay: float = 1e-4,
+        val_frac: float = 0.15,
+        patience: int = 10,
+        seed: int = 0,
+        k_fold: int = 0,
+        texts=None,
+        calibrate: bool = False,
+        device=None,
+    ) -> TrainReport:
+        """BCE training with AdamW + cosine schedule + grad clip + early
+        stopping; optional k-fold CV reporting (reference
+        scripts/train_predictor.py:261-466).
+
+        ``texts``: optional aligned (prompt, draft) pairs — activates joint
+        training of the learned text-embedding block. Without texts the
+        embedding rows stay masked (zero contribution) and the model is the
+        plain dense MLP.
+
+        ``calibrate``: Platt-scale the output probabilities on the validation
+        split (a, b on the logit — the DP consumes the predictor as a
+        probability, so calibration error translates directly into routing
+        error).
+
+        ``device``: where the steps run (default: the card; raises without
+        one). The fitted params stay there; ``predict_features`` copies them
+        to the host once."""
+        device = resolve_device(device)
+        t_start = time.perf_counter()
+        X = np.asarray(X, np.float32)
+        y = np.asarray(y, np.float32)
+        self.mean = X.mean(axis=0)
+        # floor the std: near-constant training features must not amplify
+        # serve-time variation by 1/std ~ 1e6 (saturates the net)
+        self.std = np.maximum(X.std(axis=0), 1e-3)
+        Xn = (X - self.mean) / self.std
+        if self.embed_dim and texts is not None:
+            if len(texts) != len(Xn):
+                raise ValueError(f"{len(texts)} texts for {len(Xn)} samples")
+            IDX, MASK = hash_batch(texts)
+        else:
+            IDX = np.zeros((len(Xn), EMBED_LEN), np.int32)
+            MASK = np.zeros((len(Xn), EMBED_LEN), np.float32)
+
+        report = TrainReport()
+        if k_fold and k_fold > 1:
+            idx = np.random.default_rng(seed).permutation(len(Xn))
+            folds = np.array_split(idx, k_fold)
+            for fi in range(k_fold):
+                val_idx = folds[fi]
+                tr_idx = np.concatenate([folds[j] for j in range(k_fold) if j != fi])
+                m, rep = self._train_one(
+                    Xn[tr_idx], IDX[tr_idx], MASK[tr_idx], y[tr_idx],
+                    Xn[val_idx], IDX[val_idx], MASK[val_idx], y[val_idx],
+                    epochs, batch_size, lr, weight_decay, patience, seed + fi, device,
+                )
+                report.fold_metrics.append(
+                    {"fold": fi, "val_auc": rep.val_auc, "val_r2": rep.val_r2}
+                )
+            # final model trained on everything (standard practice)
+
+        rng = np.random.default_rng(seed)
+        perm = rng.permutation(len(Xn))
+        n_val = max(int(len(Xn) * val_frac), 1)
+        val_idx, tr_idx = perm[:n_val], perm[n_val:]
+        self.params, rep = self._train_one(
+            Xn[tr_idx], IDX[tr_idx], MASK[tr_idx], y[tr_idx],
+            Xn[val_idx], IDX[val_idx], MASK[val_idx], y[val_idx],
+            epochs, batch_size, lr, weight_decay, patience, seed, device,
         )
+        self._np_cache = None
+        if calibrate and len(val_idx) >= 20:
+            self.calibration = (1.0, 0.0)
+            self.group_calibration = {}
+            p_val = self.predict_features(
+                X[val_idx],
+                texts=[texts[i] for i in val_idx] if texts is not None else None,
+            )
+            y_val = y[val_idx]
+
+            def _cal(p: np.ndarray, ab: tuple[float, float]) -> np.ndarray:
+                a, b = ab
+                logit = np.log(np.clip(p, 1e-7, 1 - 1e-7)
+                               / np.clip(1 - p, 1e-7, 1))
+                return 1.0 / (1.0 + np.exp(-(a * logit + b)))
+
+            # Pooled Platt, kept only when it reduces ECE on the validation
+            # slice it was fit on — a fit that cannot even help in-sample
+            # (small n, ECE-vs-NLL mismatch) would only distort the DP.
+            pooled = _fit_platt(p_val, y_val)
+            if _ece(y_val, _cal(p_val, pooled)) <= _ece(y_val, p_val):
+                self.calibration = pooled
+            # Per-(stage, draftless) calibration: each group picks the best
+            # of {identity, pooled, its own Platt fit} by validation ECE, so
+            # calibration can only improve per-tier reliability — the
+            # quantity the DP routes on. Reliability/ECE per group goes into
+            # the report.
+            groups = self._groups_of(X[val_idx])
+            for key in sorted({tuple(g) for g in groups}):
+                m = (groups[:, 0] == key[0]) & (groups[:, 1] == key[1])
+                n_pos = int((y_val[m] > 0.5).sum())
+                n_neg = int(m.sum()) - n_pos
+                row = {"stage": int(key[0]), "draftless": int(key[1]),
+                       "n": int(m.sum()),
+                       "ece_before": _ece(y_val[m], p_val[m])}
+                candidates = [("identity", (1.0, 0.0)),
+                              ("pooled", self.calibration)]
+                if m.sum() >= 20 and n_pos >= 3 and n_neg >= 3:
+                    candidates.append(("group", _fit_platt(p_val[m], y_val[m])))
+                chosen, (a, b) = min(
+                    candidates,
+                    key=lambda c: _ece(y_val[m], _cal(p_val[m], c[1])),
+                )
+                if (a, b) != self.calibration:
+                    self.group_calibration[(int(key[0]), int(key[1]))] = (a, b)
+                row.update({"a": round(float(a), 4), "b": round(float(b), 4),
+                            "chosen": chosen,
+                            "ece_after": _ece(y_val[m], _cal(p_val[m], (a, b)))})
+                rep.calibration_report.append(row)
+        rep.fold_metrics = report.fold_metrics
+        rep.train_time_s = time.perf_counter() - t_start
+        return rep
+
+    def _train_one(
+        self, Xtr, Itr, Mtr, ytr, Xval, Ival, Mval, yval,
+        epochs, batch_size, lr, weight_decay, patience, seed, device,
+    ):
+        """One training run on ``device``, step for step the JAX class's
+        optax chain: ``clip_by_global_norm(1.0)`` (``g / |g|`` where
+        ``|g| >= 1``, no epsilon) then ``adamw`` (every leaf decays, the
+        embedding table and biases too), the cosine-decayed rate of update t
+        applied at update t (the first takes the full ``lr``). Batches come
+        from the same numpy permutation and drop the last partial batch."""
+        init = _init_mlp(
+            torch.Generator().manual_seed(seed),
+            [self.feature_dim + self.embed_dim, *self.hidden, 1],
+            self.embed_dim,
+        )
+        params = _map_params(init, lambda t: t.to(device).requires_grad_())
+        leaves = _leaves(params)
+        steps_per_epoch = max(len(Xtr) // batch_size, 1)
+        decay_steps = epochs * steps_per_epoch
+        opt = torch.optim.AdamW(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=weight_decay)
+        use_embed = self.embed_dim > 0
+
+        def fwd(p, xb, ib, mb):
+            if use_embed:
+                return mlp_forward_embed(p, xb, ib, mb)
+            return mlp_forward(p, xb)
+
+        def loss_fn(p, xb, ib, mb, yb):
+            pred = fwd(p, xb, ib, mb).clamp(1e-7, 1 - 1e-7)
+            return -torch.mean(yb * torch.log(pred) + (1 - yb) * torch.log(1 - pred))
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        train = (put(Xtr), put(Itr).long(), put(Mtr), put(ytr))
+        val = (put(Xval), put(Ival).long(), put(Mval), put(yval))
+        rep = TrainReport()
+        best_val = np.inf
+        best_params = _map_params(params, lambda t: t.detach().clone())
+        bad = 0
+        update = 0
+        rng = np.random.default_rng(seed)
+        for epoch in range(epochs):
+            order = put(rng.permutation(len(Xtr)))
+            losses = []
+            for i in range(steps_per_epoch):
+                sl = order[i * batch_size : (i + 1) * batch_size]
+                loss = loss_fn(params, *(t[sl] for t in train))
+                opt.zero_grad()
+                loss.backward()
+                with torch.no_grad():
+                    grads = [t.grad for t in leaves]
+                    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+                    keep = norm < 1.0
+                    for g in grads:
+                        g.copy_(torch.where(keep, g, g / norm))
+                for group in opt.param_groups:
+                    group["lr"] = lr * 0.5 * (
+                        1.0 + math.cos(math.pi * min(update, decay_steps) / decay_steps))
+                opt.step()
+                update += 1
+                losses.append(loss.detach())
+            with torch.no_grad():
+                vl = float(loss_fn(params, *val))
+            # the host sums the f32 step losses in f64, as the JAX loop does
+            rep.train_losses.append(sum(torch.stack(losses).tolist()) / steps_per_epoch)
+            rep.val_losses.append(vl)
+            if vl < best_val - 1e-5:
+                best_val, bad = vl, 0
+                best_params = _map_params(params, lambda t: t.detach().clone())
+                rep.best_epoch = epoch
+            else:
+                bad += 1
+                if bad >= patience:
+                    break
+        rep.epochs_run = len(rep.train_losses)
+
+        with torch.no_grad():
+            pv = fwd(best_params, *val[:3]).cpu().numpy()
+        rep.val_auc = _auc(yval, pv)
+        ss_res = float(np.sum((yval - pv) ** 2))
+        ss_tot = float(np.sum((yval - yval.mean()) ** 2)) or 1e-12
+        rep.val_r2 = 1.0 - ss_res / ss_tot
+        return best_params, rep
 
     # -- persistence ---------------------------------------------------------
     def save(self, path: str) -> None:
@@ -300,6 +508,95 @@ class MLPQualityPredictor:
             }
         return self
 
+
+
+def _map_params(params: Params, fn) -> Params:
+    return {k: ([fn(t) for t in v] if isinstance(v, list) else fn(v)) for k, v in params.items()}
+
+
+def _leaves(params: Params) -> list:
+    return [t for v in params.values() for t in (v if isinstance(v, list) else [v])]
+
+
+def _ece(y: np.ndarray, p: np.ndarray, n_bins: int = 10) -> float:
+    """Expected calibration error: confidence-binned |accuracy - confidence|
+    weighted by bin mass (standard 10-bin ECE)."""
+    y = np.asarray(y, np.float64)
+    p = np.asarray(p, np.float64)
+    if len(p) == 0:
+        return 0.0
+    bins = np.clip((p * n_bins).astype(int), 0, n_bins - 1)
+    ece = 0.0
+    for b in range(n_bins):
+        m = bins == b
+        if m.any():
+            ece += m.mean() * abs(float(y[m].mean()) - float(p[m].mean()))
+    return round(float(ece), 4)
+
+
+def _fit_platt(p: np.ndarray, y: np.ndarray, iters: int = 50) -> tuple[float, float]:
+    """Fit sigmoid(a * logit(p) + b) to binary labels by Newton's method
+    (2-parameter logistic regression — Platt scaling). Targets use the
+    standard (n+ + 1)/(n+ + 2), 1/(n- + 2) smoothing to avoid overconfident
+    endpoints."""
+    p = np.clip(np.asarray(p, np.float64), 1e-7, 1 - 1e-7)
+    y = np.asarray(y, np.float64) > 0.5
+    z = np.log(p / (1 - p))
+    n_pos, n_neg = y.sum(), (~y).sum()
+    t = np.where(y, (n_pos + 1.0) / (n_pos + 2.0), 1.0 / (n_neg + 2.0))
+    def nll(a_, b_):
+        s = np.clip(a_ * z + b_, -35, 35)
+        q = 1.0 / (1.0 + np.exp(-s))
+        q = np.clip(q, 1e-12, 1 - 1e-12)
+        return -np.sum(t * np.log(q) + (1 - t) * np.log(1 - q))
+
+    a, b = 1.0, 0.0
+    loss = nll(a, b)
+    for _ in range(iters):
+        s = np.clip(a * z + b, -35, 35)
+        q = 1.0 / (1.0 + np.exp(-s))
+        g = np.array([np.sum((q - t) * z), np.sum(q - t)])
+        w = q * (1 - q)
+        h = np.array([[np.sum(w * z * z) + 1e-9, np.sum(w * z)],
+                      [np.sum(w * z), np.sum(w) + 1e-9]])
+        step = np.linalg.solve(h, g)
+        # damped Newton: backtrack until the NLL decreases (a plain step
+        # diverges when the start is far from the optimum)
+        scale = 1.0
+        for _ in range(30):
+            na, nb = a - scale * step[0], b - scale * step[1]
+            new_loss = nll(na, nb)
+            if new_loss <= loss:
+                break
+            scale *= 0.5
+        else:
+            break
+        a, b, loss = na, nb, new_loss
+        if scale * np.abs(step).max() < 1e-8:
+            break
+    if not (np.isfinite(a) and np.isfinite(b)) or a <= 0:
+        return (1.0, 0.0)  # degenerate fit: keep identity
+    return (float(a), float(b))
+
+
+def _auc(y: np.ndarray, p: np.ndarray) -> float:
+    """Rank-based AUC without sklearn (ties handled by average rank)."""
+    y = np.asarray(y) > 0.5
+    n_pos, n_neg = int(y.sum()), int((~y).sum())
+    if n_pos == 0 or n_neg == 0:
+        return 0.5
+    order = np.argsort(p, kind="mergesort")
+    ranks = np.empty(len(p), np.float64)
+    sorted_p = p[order]
+    i = 0
+    r = np.arange(1, len(p) + 1, dtype=np.float64)
+    while i < len(p):
+        j = i
+        while j + 1 < len(p) and sorted_p[j + 1] == sorted_p[i]:
+            j += 1
+        ranks[order[i : j + 1]] = r[i : j + 1].mean()
+        i = j + 1
+    return float((ranks[y].sum() - n_pos * (n_pos + 1) / 2) / (n_pos * n_neg))
 
 
 def predictor_from_jax(

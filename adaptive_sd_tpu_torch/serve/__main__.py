@@ -4,17 +4,19 @@
     python -m adaptive_sd_tpu_torch.serve --synthetic --device cpu --port 8200
     python -m adaptive_sd_tpu_torch.serve --synthetic --scheduled --device cpu
 
-``--mock`` serves canned stages (no model, no device). ``--synthetic`` puts
-three tiny random tiers (INT8 -> INT4 -> INT4) behind the same API, on CUDA
+``--mock`` serves canned stages (no model). ``--synthetic`` puts three tiny
+random tiers (INT8 -> INT4 -> INT4) behind the same API. Both run on CUDA
 unless ``--device cpu`` is given (a rehearsal: on CPU tensors every kernel
-wrapper takes its plain version). The predictor has seeded random weights;
-load a trained one with ``--predictor file.npz`` (a file saved by either
-package's ``MLPQualityPredictor.save``). ``--scheduled`` (engine-backed tiers
-only) serves through ``ScheduledCascadePipeline``: one continuous-batching
-scheduler per tier with draft-verify escalation admission, ``--max-batch``
-lanes each, ``--scan-steps`` decode steps per dispatch, and
-``--preemption-mode`` recompute or swap under KV-page pressure; tier 0 then
-runs W8A8 (``act_quant``) and every tier has the prefix cache.
+wrapper takes its plain version). Without ``--predictor file.npz`` (a file
+saved by either package's ``MLPQualityPredictor.save``) the server first
+trains its predictor on that device, on ``generate_synthetic(n_prompts=500)``
+for 20 epochs with patience 5, as the JAX package's server does (``--mock``
+included). ``--scheduled`` (engine-backed tiers only) serves through
+``ScheduledCascadePipeline``: one continuous-batching scheduler per tier with
+draft-verify escalation admission, ``--max-batch`` lanes each,
+``--scan-steps`` decode steps per dispatch, and ``--preemption-mode``
+recompute or swap under KV-page pressure; tier 0 then runs W8A8
+(``act_quant``) and every tier has the prefix cache.
 """
 
 from __future__ import annotations
@@ -34,12 +36,18 @@ def build_pipeline(args):
     )
     from ..engine import TierEngine
     from ..models import TINY128, init_params_quantized
-    from ..predict import MLPQualityPredictor
+    from ..predict import MLPQualityPredictor, generate_synthetic
 
-    predictor = (MLPQualityPredictor.load(args.predictor) if args.predictor
-                 else MLPQualityPredictor(n_stages=3, seed=args.seed))
     costs = (1.0, 2.0, 4.5)
     scheduled = bool(getattr(args, "scheduled", False))
+    if scheduled and args.mock:
+        raise SystemExit("--scheduled needs engine-backed tiers: use --synthetic")
+    if args.predictor:
+        predictor = MLPQualityPredictor.load(args.predictor)
+    else:
+        X, y, _ = generate_synthetic(n_prompts=500, n_stages=len(costs))
+        predictor = MLPQualityPredictor(n_stages=len(costs), seed=args.seed)
+        predictor.fit(X, y, epochs=20, patience=5, seed=args.seed, device=args.device)
     if args.mock:
         stages = [MockStage(f"tier{i}", cost_per_token=c, capacity=cap)
                   for i, (c, cap) in enumerate(zip(costs, (0.5, 0.75, 0.97)))]
@@ -61,8 +69,6 @@ def build_pipeline(args):
                 spec_topk=0 if i == 2 else 64))
     config = PipelineConfig(lam=args.lam, max_new_tokens=args.max_new)
     if scheduled:
-        if args.mock:
-            raise SystemExit("--scheduled needs engine-backed tiers: use --synthetic")
         from ..cascade import ScheduledCascadePipeline
 
         return ScheduledCascadePipeline(

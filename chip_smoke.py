@@ -15,8 +15,11 @@ Phases, one JSON line each; any failure exits non-zero:
    prefix and at a 512-token prefill, beside scaled_dot_product_attention on
    K/V dequantised beforehand), with times:
    kernel, plain version, one PyTorch library call where one computes the
-   same function, and the bound (bytes over the card's memory rate or
-   operations over its peak, whichever is larger).
+   same function (paged decode and window: SDPA on K/V gathered and
+   dequantised beforehand; INT4: torch._weight_int4pack_mm in bf16, else
+   torch.matmul on the weight dequantised beforehand), and the bound (bytes
+   over the card's memory rate or operations over its peak, whichever is
+   larger).
 3. reference: small f32 engines (INT8, INT4 per-channel, INT4 grouped) on the
    card give the same greedy tokens as the same engines on the CPU (plain
    versions), and ``generate_with_policy`` gives the CPU's escalation flags.
@@ -55,6 +58,22 @@ Phases, one JSON line each; any failure exits non-zero:
    on: eight concurrent submits, one streamed request, a forced walk, a
    response-cache hit; every decision recomputed on the host; stages and
    tokens held against ``AdaptiveCascadePipeline`` over the same engines.
+   routing: the routing stack over the pipeline phase's 7B INT8 -> 14B INT4
+   -> 32B INT4 engines, from the tiers' own drafts: ``generate_from_engines``
+   over prompts of the frozen suites in data/ (synthetic rows mixed in; every
+   feature finite, the last tier's labels 1); the predictor's ``fit`` (with
+   the learned text embedding and calibration) on the card against the same
+   fit on the CPU (the same epochs and best epoch, per-epoch losses within
+   FIT_TOL; save -> load predicts the same); ``train_inline_predictor`` ->
+   ``policy_from_predictor`` deciding tier 0 on the device under
+   ``QualityGateController`` (every decision and the controller's lambda
+   after every request recomputed on the host); ``calibrate_costs``
+   (finite positive ratios, installed as the pipeline's costs); a
+   ``LambdaSweepHarness`` over gsm-style items scored by ``score_item``; a
+   ``CascadeWalk`` over the trained predictor's estimates on ``make_workload``
+   items (``run`` equal to ``run_one`` item by item) beside the oracles'
+   assignments. Its qualities are model outputs on random weights
+   ("quality_model": "synthetic-workload"), not speed results.
 7. step: one decode step of each tier, its launches per kernel, its time and
    the device's busy time by kernel (torch.profiler), and the seconds of a
    512-token prefill and its device time by kernel; the INT4 tiers also with
@@ -66,7 +85,7 @@ Phases, one JSON line each; any failure exits non-zero:
    against its plain version at every one of them.
 
 The kernels' launch counters are zeroed just before each of the paths 4, 5
-and 6 (the scheduler and scheduled_pipeline paths too) and read just after;
+and 6 (the scheduler, scheduled_pipeline and routing paths too) and read just after;
 every kernel of a path must have been launched. The scheduled_pipeline path
 counts the scheduled plane's runs only, not the fused runs it is held against.
 The last lines: the card's name and power limit as nvidia-smi reports them,
@@ -83,6 +102,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 
@@ -93,12 +113,26 @@ from adaptive_sd_tpu_torch.cascade import (
     AdaptiveCascadePipeline,
     EngineTextStage,
     PipelineConfig,
+    QualityGateController,
     ScheduledCascadePipeline,
     StageManager,
+    calibrate_costs,
 )
 from adaptive_sd_tpu_torch.core.types import RequestContext
 from adaptive_sd_tpu_torch.engine import ContinuousBatchingScheduler, TierEngine
 from adaptive_sd_tpu_torch.engine.decode import _bucket_len
+from adaptive_sd_tpu_torch.evalx import (
+    LambdaSweepHarness,
+    expected_gate_constrained_assignments,
+    gate_constrained_assignments,
+    load_frozen,
+    make_workload,
+    oracle_assignments,
+    realize_goodness,
+    tier_capabilities,
+)
+from adaptive_sd_tpu_torch.evalx.walk import CascadeWalk
+from adaptive_sd_tpu_torch.evalx.workload import solve_prob_matrix
 from adaptive_sd_tpu_torch.models import (
     DEFAULT_CASCADE,
     TINY128,
@@ -112,7 +146,10 @@ from adaptive_sd_tpu_torch.predict import (
     INLINE_SLICE,
     MLPQualityPredictor,
     extract_features,
+    generate_from_engines,
+    generate_synthetic,
     policy_from_predictor,
+    train_inline_predictor,
 )
 from adaptive_sd_tpu_torch.ops import _kernels
 from adaptive_sd_tpu_torch.ops import attention as A
@@ -169,6 +206,27 @@ W8A8_M_WINDOWS = (192, 576, 2304)
 # M (512 and above), where torch.matmul on the dequantised weight is timed
 # beside the kernel
 INT8_M_WINDOWS = (32, 192, 512, 576, 2304)
+# The routing phase: prompts of the frozen suites in data/ per suite (the
+# predictor's training drafts), the tiers' new tokens a draft and a request
+# stage, synthetic rows
+# mixed in (so both labels occur, as the bench mixes real drafts and
+# prompt-only rows), the fit (epochs; patience as many, so both devices run
+# every epoch), the tolerance of the card's per-epoch losses against the
+# CPU's, the quality-gate controller's target and warm-up, the sweep's
+# lambdas and gsm-style items, and the walk's workload size and lambdas
+ROUTE_SUITES = {"factual-qa": 6, "gsm-style": 5, "humaneval-style": 5}
+ROUTE_MAX_NEW = 16
+ROUTE_SYNTHETIC = 200
+ROUTE_EPOCHS = 12
+ROUTE_BATCH = 64
+FIT_TOL = 1e-3
+GATE_TARGET = 0.9
+GATE_WARMUP = 2
+ROUTE_REQUESTS = 8
+SWEEP_LAMBDAS = (0.3, 3.0)
+SWEEP_ITEMS = 4
+WALK_ITEMS = 12
+WALK_LAMBDAS = (0.05, 0.3, 1.0, 3.0)
 # Paged attention against its plain version: f32 sums in another order (and
 # the tensor cores' truncating adds); bf16 outputs, and bf16 probabilities,
 # rounded once. ATTN_TERMS: bf16 tensor-core passes of a product (f32 runs as
@@ -437,8 +495,9 @@ def phase_kernels(dev, rates, timer) -> dict:
     # bf16 outputs rounded once. Bound: bytes, or operations at the bf16
     # tensor-core peak for both types (f32 x runs as three exact bf16 terms;
     # no exact f32 product on the card is faster than one bf16 pass).
-    # Library yardstick, grouped bf16 only: torch._weight_int4pack_mm on the
-    # same values repacked once (its scales are bf16).
+    # Library yardstick: torch._weight_int4pack_mm on the same values repacked
+    # once (grouped bf16; its scales are bf16); elsewhere (f32, per-channel)
+    # torch.matmul on the weight dequantised outside the timed call.
     def int4_case(kernel, label, M, K, N, gs, dtype, reps=None):
         esize = torch.empty((), dtype=dtype).element_size()
         q = torch.randint(-128, 128, (K // 2, N), generator=g, device=dev, dtype=torch.int8)
@@ -448,13 +507,15 @@ def phase_kernels(dev, rates, timer) -> dict:
         x = torch.randn(M, K, generator=g, device=dev).to(dtype)
         out = MQ.int4_matmul_cuda(x, q, scale)
         ref = MQ.quantized_matmul_ref(x, q, scale, bits=4)
+        lib = _int4pack_call(x, q, scale, gs)
         check(kernel, f"{label} M={M} K={K} N={N} gs={gs}", dtype, out, ref, MM_TOL[dtype],
               nbytes=M * K * esize + (K // 2) * N + scale.numel() * 4 + M * N * esize,
               ops=2 * M * N * K,
               fn_k=lambda: MQ.int4_matmul_cuda(x, q, scale),
               fn_p=lambda: MQ.quantized_matmul_ref(x, q, scale, bits=4),
-              fn_lib=_int4pack_call(x, q, scale, gs), reps=reps, ops_dtype=torch.bfloat16,
-              variant=_variant(label, M))
+              fn_lib=lib or _int4_dequant_call(x, q, scale), reps=reps,
+              ops_dtype=torch.bfloat16, variant=_variant(label, M),
+              library="torch._weight_int4pack_mm" if lib else "dequantised torch.matmul")
         del q, x, out, ref
         torch.cuda.empty_cache()
 
@@ -523,10 +584,15 @@ def phase_kernels(dev, rates, timer) -> dict:
             L = list(lens)
             nbytes = 2 * qd.numel() * esize + tables.numel() * 4 + 4 * len(L) + token_bytes * sum(L)
             ops = sum(n_kv * G * 4 * D * n for n in L) * ATTN_TERMS[dtype]
+            # library yardstick: SDPA over K/V gathered and dequantised outside
+            # the timed call, each lane's G query rows at position len - 1
             check("paged_decode", f"{model}: B={len(L)} n_kv={n_kv} G={G} D={D} lens={L}", dtype,
                   out, ref, ATTN_TOL[dtype], nbytes=nbytes, ops=ops, ops_dtype=torch.bfloat16,
                   fn_k=lambda: A.paged_attention(*args, sm_scale=sm),
-                  fn_p=lambda: A.paged_attention_ref(*args, sm_scale=sm), variant=variant)
+                  fn_p=lambda: A.paged_attention_ref(*args, sm_scale=sm),
+                  fn_lib=_sdpa_window_call(qd, kp, ks, vp, vs, tables, lens_t, lens_t - 1,
+                                           group=G, sm_scale=sm),
+                  variant=variant, library="SDPA on dequantised K/V")
             return tables
 
         # window: valid rows compared (padding rows past ctx_len are never read)
@@ -669,6 +735,18 @@ def _int4pack_call(x, q, scale, gs):
               f"version (max abs {float((got.float() - want).abs().max())}); no library time"})
         return None
     return lambda: fn(x, w, gs, sz)
+
+
+def _int4_dequant_call(x, q, scale):
+    """INT4 (grouped or per-channel) as one torch.matmul in x's type on the
+    weight dequantised here, outside the timed call: the yardstick where
+    torch._weight_int4pack_mm takes no part (f32 x, per-channel scales)."""
+    from adaptive_sd_tpu_torch.ops.quant import unpack_int4
+
+    w = unpack_int4(q).to(torch.float32)  # [K, N]
+    s = scale if scale.ndim == 1 else scale.repeat_interleave(w.shape[0] // scale.shape[0], 0)
+    w = (w * s).to(x.dtype)
+    return lambda: torch.matmul(x, w)
 
 
 def _int_mm_call(x, q, scale):
@@ -1170,12 +1248,16 @@ def _text_prompt(rng, n_words: int) -> str:
     return " ".join(f"w{int(i)}" for i in rng.integers(0, 50000, n_words))
 
 
-def _recompute_decision(pipe, request, result) -> dict:
+def _recompute_decision(pipe, request, result, lam=None) -> dict:
     """The stopping decision at the final stage, recomputed on the host from
     the probabilities in the result: the forward-looking DP over the adjusted
     probabilities of the visited stages and the prompt-conditional estimates
-    of the others, on costs normalised to a maximum of 1."""
-    lam = request.lambda_override if request.lambda_override is not None else pipe.lam
+    of the others, on costs normalised to a maximum of 1. ``lam``: the
+    pipeline's lambda while the request ran (default: its lambda now)."""
+    if request.lambda_override is not None:
+        lam = request.lambda_override
+    elif lam is None:
+        lam = pipe.lam
     p = [float(x) for x in pipe._prompt_priors(request.prompt)]
     for st, adj in zip(result.stage_results, result.decision.adjusted_probs):
         p[st.stage_index] = float(adj)
@@ -1509,8 +1591,220 @@ def phase_scheduled_pipeline(dev, tier0_w8a8, int4_engines) -> dict:
     return launches
 
 
-def _pipeline_row(kind, pipe, req, res, secs, vocab, inline_head) -> dict:
-    """Check one ProcessingResult and emit its line."""
+def _gate_lambdas(target: float, qualities, *, lam0=1.0, lr=0.5, ema_alpha=0.05,
+                  bounds=(0.01, 100.0), warmup=10) -> list:
+    """The quality-gate controller's lambda after each observed quality,
+    recomputed on the host from the recorded signals: an EMA of the quality
+    (1/n weights at first), and lambda * exp(lr * (ema - target)) within
+    bounds from the warm-up's last observation on."""
+    lam, ema, out = lam0, target, []
+    for n, q in enumerate(qualities, 1):
+        q = min(max(float(q), -1.0), 2.0)
+        ema += max(ema_alpha, 1.0 / n) * (q - ema)
+        if n >= warmup:
+            lam = float(np.clip(lam * np.exp(lr * (ema - target)), *bounds))
+        out.append(lam)
+    return out
+
+
+def phase_routing(dev, tier0, int4_engines) -> dict:
+    """The routing stack over 7B INT8 (bf16) -> 14B INT4 -> 32B INT4 at full
+    width and depth (the pipeline phase's engines), driven from the tiers'
+    own drafts: training data (``generate_from_engines`` over prompts of the
+    frozen suites, synthetic rows mixed in), the predictor's fit on the card
+    against the same fit on the CPU, the inline head trained and serving
+    tier 0, the quality-gate controller closing the loop on lambda, cost
+    calibration, a lambda sweep scored by the suites' own scorers, and the
+    evaluation walk against the oracles. Every decision is recomputed on the
+    host. Returns the launch counts of the run."""
+    engines = [tier0, *int4_engines]
+    n = len(engines)
+    vocab = engines[0].spec.vocab_size
+    tokenize = _tokenize(vocab)
+    suites = {name: load_frozen(name) for name in ROUTE_SUITES}
+    prompts = [it["prompt"] for name, k in ROUTE_SUITES.items() for it in suites[name][:k]]
+    line = {"phase": "routing", "quality_model": "synthetic-workload",
+            "note": "model outputs on random weights, not speed results"}
+
+    zero_counters()
+    # -- 1. training data from the tiers' own drafts -------------------------------
+    samples, t_gen = _call(generate_from_engines, prompts, engines, tokenize, _detokenize,
+                           max_new=ROUTE_MAX_NEW)
+    if len(samples) != 2 * n * len(prompts):
+        fail(f"routing: {len(samples)} samples for {len(prompts)} prompts over {n} tiers")
+    if not all(np.isfinite(s.features).all() for s in samples):
+        fail("routing: a sample's features are not finite")
+    last = [s.label for s in samples if s.stage_index == n - 1]
+    if last != [1] * len(last):
+        fail(f"routing: the last tier's labels are not all 1: {last}")
+    Xs, ys, _ = generate_synthetic(n_prompts=ROUTE_SYNTHETIC, n_stages=n, seed=0)
+    X = np.concatenate([np.asarray([s.features for s in samples], np.float32), Xs])
+    y = np.concatenate([np.asarray([s.label for s in samples], np.float32), ys])
+    texts = [(s.prompt, s.draft) for s in samples] + [("", "")] * len(Xs)
+    if not 0.0 < y.mean() < 1.0:
+        fail(f"routing: one label only (mean {y.mean()})")
+    emit({**line, "step": "data", "prompts": len(prompts), "engine_rows": len(samples),
+          "synthetic_rows": len(Xs), "label_mean": float(y.mean()),
+          "engine_label_mean_by_tier": [float(np.mean([s.label for s in samples
+                                                       if s.stage_index == k]))
+                                        for k in range(n)],
+          "generate_from_engines_s": t_gen})
+
+    # -- 2. the predictor's fit on the card, and the same fit on the CPU -----------
+    fit_kw = dict(epochs=ROUTE_EPOCHS, patience=ROUTE_EPOCHS, batch_size=ROUTE_BATCH, seed=0,
+                  texts=texts, calibrate=True)
+    predictor = MLPQualityPredictor(n_stages=n, seed=0)
+    rep, t_card = _call(predictor.fit, X, y, device=dev, **fit_kw)
+    twin = MLPQualityPredictor(n_stages=n, seed=0)
+    rep_cpu, t_cpu = _call(twin.fit, X, y, device="cpu", **fit_kw)
+    if predictor.embed_dim <= 0 or predictor.params["w"][0].device.type != dev.type:
+        fail("routing: the predictor was not trained with an embedding on the card")
+    d_train = float(np.max(np.abs(np.subtract(rep.train_losses, rep_cpu.train_losses))))
+    d_val = float(np.max(np.abs(np.subtract(rep.val_losses, rep_cpu.val_losses))))
+    emit({**line, "step": "fit", "epochs": rep.epochs_run, "best_epoch": rep.best_epoch,
+          "best_epoch_cpu": rep_cpu.best_epoch, "val_losses": rep.val_losses,
+          "val_losses_cpu": rep_cpu.val_losses, "train_losses": rep.train_losses,
+          "max_abs_loss_diff": {"train": d_train, "val": d_val, "tol": FIT_TOL},
+          "val_auc": rep.val_auc, "val_auc_cpu": rep_cpu.val_auc,
+          "calibration": predictor.calibration,
+          "group_calibration": {str(k): v for k, v in predictor.group_calibration.items()},
+          "calibration_report": rep.calibration_report,
+          "card_s": t_card, "cpu_s": t_cpu, "card_s_per_epoch": t_card / rep.epochs_run,
+          "cpu_s_per_epoch": t_cpu / rep_cpu.epochs_run})
+    if not min(rep.val_losses) < rep.val_losses[0]:
+        fail(f"routing: the best validation loss is not below the first epoch's: "
+             f"{rep.val_losses}")
+    if (rep.epochs_run != rep_cpu.epochs_run or rep.best_epoch != rep_cpu.best_epoch
+            or max(d_train, d_val) > FIT_TOL):
+        fail(f"routing: the card's fit differs from the CPU's: best epoch {rep.best_epoch} / "
+             f"{rep_cpu.best_epoch}, loss diff train {d_train} val {d_val}")
+    with tempfile.TemporaryDirectory() as tmp:
+        predictor.save(f"{tmp}/predictor.npz")
+        back = MLPQualityPredictor.load(f"{tmp}/predictor.npz")
+    if not np.array_equal(back.predict_features(X, texts=texts),
+                          predictor.predict_features(X, texts=texts)):
+        fail("routing: save -> load changed the predictions")
+
+    # -- 3. the inline head, trained on the card, decides tier 0 -------------------
+    head = train_inline_predictor(X, y, device=dev, epochs=ROUTE_EPOCHS, patience=ROUTE_EPOCHS,
+                                  batch_size=ROUTE_BATCH, seed=0)
+    costs = np.cumsum(PIPE_COSTS[:n]).tolist()
+    inline_policy = policy_from_predictor(head, costs, PIPE_PRIORS[:n], INLINE_LAM)
+
+    def stages(policy=None):
+        return StageManager([
+            EngineTextStage(e, tokenize, _detokenize, name=e.spec.name,
+                            cost_per_token=PIPE_COSTS[i], stage_index=i,
+                            inline_policy=policy if i == 0 else None)
+            for i, e in enumerate(engines)])
+
+    base = dict(max_new_tokens=ROUTE_MAX_NEW, prior_quality=PIPE_PRIORS)
+    pipe = AdaptiveCascadePipeline(stages(inline_policy), predictor,
+                                   PipelineConfig(direct_entry=False, enable_caching=False, **base))
+    # -- 4. the quality-gate controller closes the loop on lambda ------------------
+    ctrl = QualityGateController(GATE_TARGET, warmup_obs=GATE_WARMUP)
+    ctrl.attach(pipe)
+    asked = [it["prompt"] for it in suites["factual-qa"][-ROUTE_REQUESTS:]]
+    qualities, lams, pipe_lams, rows = [], [], [], []
+    lam0 = pipe.lam
+    for i, text in enumerate(asked):
+        req = RequestContext(prompt=text, max_tokens=ROUTE_MAX_NEW,
+                             request_id=f"smoke_route_{i}")
+        lam_before = pipe.lam
+        res, secs = _call(pipe.process_request, req)
+        rows.append(_pipeline_row("routing_gate", pipe, req, res, secs, vocab, head,
+                                  lam=lam_before, max_new=ROUTE_MAX_NEW))
+        qualities.append(float(res.decision.acceptance_probs[-1]))
+        lams.append(ctrl.state()["lambda"])
+        pipe_lams.append(pipe.lam)
+    host_lams = _gate_lambdas(GATE_TARGET, qualities, warmup=GATE_WARMUP)
+    host_pipe, cur = [], lam0
+    for lam in host_lams:
+        if abs(lam - cur) / max(cur, 1e-9) > 1e-3:
+            cur = lam
+        host_pipe.append(cur)
+    emit({**line, "step": "quality_gate", "target": GATE_TARGET, "qualities": qualities,
+          "lambdas": lams, "lambdas_host": host_lams, "pipeline_lambdas": pipe_lams,
+          "on_device": [r["decided_on_device"] for r in rows],
+          "stages": [r["stages"] for r in rows], "seconds": [r["seconds"] for r in rows]})
+    if ctrl.n_obs != len(asked) or lams != host_lams or pipe_lams != host_pipe:
+        fail(f"routing: the controller's lambdas differ from the host's: {lams} / {host_lams}, "
+             f"pipeline {pipe_lams} / {host_pipe}, {ctrl.n_obs} observations")
+    if not any(r["decided_on_device"] for r in rows):
+        fail("routing: no request was decided on the device by the trained inline head")
+    pipe.shutdown()
+
+    # -- calibration: measured cost ratios installed on a host-decided pipeline ----
+    route = AdaptiveCascadePipeline(stages(), predictor, PipelineConfig(**base))
+    ratios, t_cal = _call(calibrate_costs, route)
+    if (len(ratios) != n or not all(math.isfinite(r) and r > 0 for r in ratios)
+            or route.costs != list(np.cumsum(ratios))):
+        fail(f"routing: calibrated ratios {ratios}, installed costs {route.costs}")
+
+    # -- 5. evalx: a lambda sweep over a frozen suite, scored by its scorer --------
+    harness = LambdaSweepHarness(route)
+    points, t_sweep = _call(harness.run, lambdas=SWEEP_LAMBDAS, datasets=("gsm-style",),
+                            n_per_dataset=SWEEP_ITEMS, max_tokens=ROUTE_MAX_NEW)
+    if len(points) != len(SWEEP_LAMBDAS) or any(pt.n != SWEEP_ITEMS for pt in points):
+        fail(f"routing: the sweep answered {[pt.n for pt in points]} of {SWEEP_ITEMS} items")
+    route.shutdown()
+    emit({**line, "step": "calibration_and_sweep", "ratios": ratios, "costs": route.costs,
+          "calibrate_s": t_cal, "sweep_s": t_sweep,
+          "sweep": [{"lam": pt.lam, "n": pt.n, "avg_quality": pt.avg_quality,
+                     "avg_cost": pt.avg_cost, "stage_distribution": pt.stage_distribution,
+                     "avg_latency_s": pt.avg_latency_s} for pt in points]})
+
+    # -- the walk over the trained predictor's estimates on workload items ---------
+    items = make_workload(WALK_ITEMS, seed=0)
+    item_prompts = [it.prompt for it in items]
+    p_hat, p0, times = np.zeros((WALK_ITEMS, n)), np.zeros((WALK_ITEMS, n)), []
+    for k, e in enumerate(engines):
+        outs, secs = _call(e.generate, [tokenize(t) for t in item_prompts],
+                           max_new=ROUTE_MAX_NEW)
+        times.append(secs / ROUTE_MAX_NEW)  # a batched step, the walk's unit of time
+        for i, (t, o) in enumerate(zip(item_prompts, outs)):
+            p_hat[i, k] = predictor.predict(t, _detokenize(o.token_ids), o.logprobs,
+                                            k).quality_score
+            p0[i, k] = predictor.predict(t, "", None, k).quality_score
+    caps = tier_capabilities(n)
+    p_true = solve_prob_matrix(items, caps)
+    goodness = realize_goodness(items, caps, seed=0)
+    walk = CascadeWalk(step=times, prefill=times, verify=times, p_hat=p_hat, p0=p0,
+                       p_true=p_true, max_new=ROUTE_MAX_NEW, skip_threshold=0.25,
+                       min_draft_quality=0.3, prefetch_threshold=0.6, chain_threshold=0.5,
+                       costs=route.costs)
+    walks = []
+    for lam in WALK_LAMBDAS:
+        stops, lat = walk.run(lam)
+        one = [walk.run_one(i, lam) for i in range(WALK_ITEMS)]
+        if ([int(s) for s in stops] != [s for s, _ in one]
+                or any(abs(a - b) > 1e-12 * abs(b) for a, (_, b) in zip(lat, one))):
+            fail(f"routing: the vectorised walk differs from run_one at lambda {lam}: "
+                 f"{stops.tolist()} / {one}")
+        walks.append({"lam": lam, "stops": stops.tolist(), "latency": lat.tolist()})
+    stage_times = np.asarray(walk.stage_plain)
+    emit({**line, "step": "walk", "items": WALK_ITEMS, "costs": route.costs, "walks": walks,
+          "oracle": oracle_assignments(goodness).tolist(),
+          "gate_constrained": gate_constrained_assignments(
+              goodness, stage_times, 0.95 * goodness[:, -1].mean()).tolist(),
+          "expected_gate_constrained": expected_gate_constrained_assignments(
+              p_true, stage_times, 0.95 * p_true[:, -1].mean()).tolist()})
+    launches = read_counters()
+    errors = _error_metrics()
+    if errors:
+        fail(f"routing: a stage or a request failed: {errors}")
+    emit({**line, "step": "summary", "launches": launches,
+          "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    _require_launches("routing", launches,
+                      ("int8_matmul", "int4_matmul_grouped", "paged_decode", "paged_window"))
+    return launches
+
+
+def _pipeline_row(kind, pipe, req, res, secs, vocab, inline_head, lam=None,
+                  max_new=MAX_NEW) -> dict:
+    """Check one ProcessingResult (``max_new`` tokens a stage) and emit its
+    line. ``lam``: the pipeline's lambda while the request ran, where an
+    observer has moved it since."""
     if res.error is not None:
         fail(f"pipeline {kind}: {res.error}")
     if not res.stage_results or res.decision is None:
@@ -1518,7 +1812,7 @@ def _pipeline_row(kind, pipe, req, res, secs, vocab, inline_head) -> dict:
     calls = []
     for st in res.stage_results:
         o = st.output
-        if (o.num_generated_tokens != MAX_NEW or not np.isfinite(o.logprobs).all()
+        if (o.num_generated_tokens != max_new or not np.isfinite(o.logprobs).all()
                 or o.token_ids.min() < 0 or o.token_ids.max() >= vocab):
             fail(f"pipeline {kind}: stage {st.stage_index} gave {o.num_generated_tokens} tokens, "
                  f"finite={np.isfinite(o.logprobs).all()}, ids in range="
@@ -1534,7 +1828,7 @@ def _pipeline_row(kind, pipe, req, res, secs, vocab, inline_head) -> dict:
     row = {"phase": "pipeline", "kind": kind, "request_id": res.request_id,
            "stages": [st.stage_index for st in res.stage_results],
            "final_stage": res.final_stage, "seconds": secs,
-           "tokens_per_s": MAX_NEW / secs, "calls": calls,
+           "tokens_per_s": max_new / secs, "calls": calls,
            "acceptance_probs": [float(x) for x in res.decision.acceptance_probs],
            "adjusted_probs": [float(x) for x in res.decision.adjusted_probs],
            "rationale": res.decision.rationale, "decided_on_device": on_device}
@@ -1556,7 +1850,7 @@ def _pipeline_row(kind, pipe, req, res, secs, vocab, inline_head) -> dict:
                 or (len(res.stage_results) > 1) != row["recomputed"]["escalate_device"]):
             fail(f"pipeline {kind}: the device's decision differs from the host's: {row}")
     if not on_device or len(res.stage_results) > 1:
-        rec = _recompute_decision(pipe, req, res)
+        rec = _recompute_decision(pipe, req, res, lam)
         row["recomputed_dp"] = rec
         if not rec["stops_at_final"]:
             fail(f"pipeline {kind}: the recomputed decision does not stop at stage "
@@ -1990,6 +2284,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["pipeline"], int4_engines = phase_pipeline(dev, tier0)
     paths["scheduled_pipeline"] = phase_scheduled_pipeline(dev, tier0_w8a8, int4_engines)
+    paths["routing"] = phase_routing(dev, tier0, int4_engines)
     phase_step([*int4_engines, tier0_w8a8])
     # the INT4 tiers once more with f32 activations, on the same weights
     phase_step([_twin(e, torch.float32) for e in int4_engines])

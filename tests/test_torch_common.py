@@ -3,6 +3,8 @@ same tiny random tiers in the JAX package and in the port, weights handed
 over byte for byte, behind text stages; a host predictor and an inline head
 made from the same seeded numpy arrays."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -44,6 +46,18 @@ def tok(text):
 
 def detok(ids):
     return " ".join(str(int(i)) for i in ids)
+
+
+def plain(x):
+    """Dataclasses of either package as dicts (recursively), so that equal
+    fields compare equal across the two packages' classes."""
+    if dataclasses.is_dataclass(x):
+        return plain(dataclasses.asdict(x))
+    if isinstance(x, dict):
+        return {k: plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [plain(v) for v in x]
+    return x
 
 
 def _to_numpy(tree):

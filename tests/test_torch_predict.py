@@ -128,8 +128,15 @@ def test_seeded_init_is_reproducible_and_fit_waits():
     assert tuple(a.params["emb"].shape) == (tembed.EMBED_VOCAB, 16)
     p = a.predict("a prompt", "a draft", np.array([-0.5, -1.0], np.float32), 1)
     assert 0.0 < p.quality_score < 1.0
-    with pytest.raises(NotImplementedError, match="training slice"):
-        a.fit(np.zeros((4, 64), np.float32), np.zeros(4, np.float32))
+    X = np.random.default_rng(0).normal(size=(40, 64)).astype(np.float32)
+    y = (X[:, 0] > 0).astype(np.float32)
+    if not torch.cuda.is_available():
+        # fit runs on the card unless the caller asks for the CPU: no fallback
+        with pytest.raises(RuntimeError, match="CUDA"):
+            a.fit(X, y, epochs=1)
+    rep = a.fit(X, y, epochs=2, batch_size=16, device="cpu")
+    assert rep.epochs_run == 2 and len(rep.val_losses) == 2
+    assert not torch.equal(a.params["w"][0], b.params["w"][0])
 
 
 def test_copied_extractors_equal_the_reference():

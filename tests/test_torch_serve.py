@@ -7,6 +7,7 @@ asyncio.run."""
 import asyncio
 import re
 
+import numpy as np
 import pytest
 import torch
 from aiohttp.test_utils import TestClient, TestServer
@@ -218,6 +219,32 @@ def test_module_entry_point_builds_a_working_pipeline(mode):
         if mode == "--synthetic":
             bits = [s.engine.params["layers"][0]["qkv_proj"].bits for s in pipe.stages]
             assert bits == [8, 4, 4]
+    finally:
+        pipe.shutdown()
+
+
+def test_synthetic_entry_point_trains_its_predictor():
+    """Without ``--predictor`` the ``--synthetic --device cpu`` server fits its
+    predictor as the JAX server does: ``generate_synthetic(n_prompts=500)``,
+    20 epochs, patience 5, on the serve device. The same fit made here gives
+    the same weights, which differ from the seeded untrained ones."""
+    import argparse
+
+    from adaptive_sd_tpu_torch.predict import MLPQualityPredictor, generate_synthetic
+    from adaptive_sd_tpu_torch.serve.__main__ import build_pipeline
+
+    args = argparse.Namespace(mock=False, synthetic=True, device="cpu", lam=1.0, max_new=8,
+                              seed=0, predictor=None)
+    pipe = build_pipeline(args)
+    try:
+        served = pipe.predictor
+        X, y, _ = generate_synthetic(n_prompts=500, n_stages=3)
+        again = MLPQualityPredictor(n_stages=3, seed=0)
+        again.fit(X, y, epochs=20, patience=5, seed=0, device="cpu")
+        untrained = MLPQualityPredictor(n_stages=3, seed=0)
+        for w, v, u in zip(served.params["w"], again.params["w"], untrained.params["w"]):
+            assert torch.equal(w, v) and not torch.equal(w, u)
+        np.testing.assert_array_equal(served.mean, X.mean(axis=0))
     finally:
         pipe.shutdown()
 
