@@ -38,6 +38,13 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool pr
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
                "r"(pred ? 16 : 0));
 }
+// 8-byte asynchronous copy global -> shared (through L1), zero-filled with
+// pred false as cp_async16.
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem, bool pred) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(pred ? 8 : 0));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {

@@ -36,6 +36,18 @@
 //   the per-key K scale and sm_scale multiply the scores after the MMAs.
 //   Probabilities use __expf (relative error ~2e-6 at these arguments), which
 //   compiles without a branch; the merge of splits keeps expf.
+// * Head dims: the MMAs take D in k-steps of 16. D of 64 and 128 walk it in
+//   64-wide chunks of 16-byte loads (ANYD false). Every other D that is a
+//   multiple of 8 up to 128 (the rehearsal tiers' 40 and 48 among them)
+//   takes the ANYD instantiation: shared memory holds D
+//   rounded up to Dp, a multiple of 16, with the K and V columns from D to Dp
+//   zero-filled by the copy (8-byte cp.async, whatever D's alignment) and the
+//   query's columns zero in registers, so the padding adds exact zeros to
+//   every score; P @ V computes Dp output columns and stores the D real ones.
+//   A row's sum order is the same in both kernels at any D. ANYD at D = 64
+//   and 128 gives the same bits but runs 1.3-2.4x slower (4-byte fragment
+//   loads and unswizzled V rows meet bank conflicts; PERF.md), so the two
+//   stay apart.
 // * Fixed k orders: a warp scores 16-key tiles i * 4 + warp against every
 //   n-tile, summing D in k-steps of 16 (thread t of a quad holds d = t * D/4 +
 //   4s .. 4s + 3 of k-step s, queries staged in that order); P @ V gives warp
@@ -68,6 +80,8 @@ constexpr float kNegInf = -1e30f;
 // Pages a split: one page of 128 tokens a block, chosen by measurement
 // (PERF.md); ops/attention.py PAGES_PER_SPLIT states the same plan.
 constexpr int kPagesPerSplit = 1;
+// The smem row width of a head dim: D rounded up to the MMA's k-step
+__host__ __device__ constexpr int attn_dpad(int D) { return (D + 15) / 16 * 16; }
 // 16-key tiles a warp scores: pages of at most 128 tokens
 constexpr int kKeyTiles = 2;
 constexpr int kMaxPage = 16 * kKeyTiles * kAttnWarps;
@@ -134,21 +148,23 @@ __device__ __forceinline__ int used_pages(int ctx_len, int last_qpos, int page, 
 // sm.qf. Fragment order: the uint2 of lane 4 * (row % 8) + t, k-step s,
 // n-tile row / 8, term p holds d = t * D/4 + 4s .. 4s + 3 of the row, so a
 // k-step's B fragment is one 8-byte load a lane.
-template <int R, typename T>
+template <int R, typename T, bool ANYD>
 struct QueryStage {
   static constexpr int TERMS = kAttnTerms<T>;
   static constexpr int NT = AttnSmem<R, TERMS>::NT;
   static constexpr int K = NT * 2;  // fragments a thread at D = 128
   uint2 vb[K];
   float4 vf[K];
-  __device__ __forceinline__ void load(const T* q, int n_rows, int D) {
-    const int steps = D / 16, n = NT * steps * 32;
+  // q rows of D elements; fragments over Dp (d0 >= D loads nothing: D and
+  // d0 are multiples of 4, so a load is all in or all out)
+  __device__ __forceinline__ void load(const T* q, int n_rows, int D, int Dp) {
+    const int steps = Dp / 16, n = NT * steps * 32;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int i = threadIdx.x + k * kAttnThreads;
       const int lane = i % 32, s = (i / 32) % steps, nt = i / 32 / steps;
-      const int row = nt * 8 + lane / 4, d0 = (lane % 4) * (D / 4) + 4 * s;
-      const bool live = i < n && row < n_rows;
+      const int row = nt * 8 + lane / 4, d0 = (lane % 4) * (Dp / 4) + 4 * s;
+      const bool live = i < n && row < n_rows && (!ANYD || d0 < D);
       if constexpr (TERMS == 1)
         vb[k] = live ? *reinterpret_cast<const uint2*>(q + (size_t)row * D + d0)
                      : make_uint2(0u, 0u);
@@ -157,8 +173,8 @@ struct QueryStage {
                      : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   }
-  __device__ __forceinline__ void store(const AttnSmem<R, TERMS>& sm, int D) const {
-    const int steps = D / 16, n = NT * steps * 32;
+  __device__ __forceinline__ void store(const AttnSmem<R, TERMS>& sm, int Dp) const {
+    const int steps = Dp / 16, n = NT * steps * 32;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int i = threadIdx.x + k * kAttnThreads;
@@ -211,6 +227,7 @@ struct PageSrc {
   const int8_t* v_pages;
   const float* v_scales;
   int n_pages_total, page, D, h;
+  int Dp;  // the smem row width: D, or attn_dpad(D) for ANYD
 };
 
 // The 16-byte chunk of V row r that chunk c is stored at: c XOR 2 * ((r / 2)
@@ -221,35 +238,56 @@ __device__ __forceinline__ int v_chunk(int r, int c, int chunks) {
 }
 
 // Issue the copies of the page at table entry `entry` into `slot`: K and
-// both scales, then V, as two commit groups.
+// both scales, then V, as two commit groups. ANYD: rows of Dp bytes (K
+// padded by 16 more), 8 bytes a copy, the columns from D to Dp zero-filled;
+// V unswizzled.
+template <bool ANYD>
 __device__ __forceinline__ void copy_page(const PageSrc& src, int entry, unsigned char* slot) {
-  const int page = src.page, D = src.D, chunks = D / 16;
+  const int page = src.page, D = src.D, Dp = ANYD ? src.Dp : D, chunks = D / 16;
   const int p = min(max(entry, 0), src.n_pages_total - 1);
   const size_t off = (size_t)src.h * src.n_pages_total + p;
   int8_t* ks = reinterpret_cast<int8_t*>(slot);
-  int8_t* vs = ks + (size_t)page * (D + 16);
-  float* ksc = reinterpret_cast<float*>(vs + (size_t)page * D);
+  int8_t* vs = ks + (size_t)page * (Dp + 16);
+  float* ksc = reinterpret_cast<float*>(vs + (size_t)page * Dp);
   float* vsc = ksc + page;
   const int8_t* kg = src.k_pages + off * page * D;
   const int8_t* vg = src.v_pages + off * page * D;
   const int tid = threadIdx.x;
-  for (int i = tid; i < page * chunks; i += kAttnThreads)
-    cp_async16(ks + (size_t)(i / chunks) * (D + 16) + (i % chunks) * 16, kg + (size_t)i * 16, true);
+  const int c8 = Dp / 8, live8 = D / 8;  // ANYD: 8-byte chunks a row, of them real
+  if constexpr (ANYD) {
+    for (int i = tid; i < page * c8; i += kAttnThreads) {
+      const int r = i / c8, c = i % c8;
+      cp_async8(ks + (size_t)r * (Dp + 16) + c * 8, kg + (size_t)r * D + (c < live8 ? c * 8 : 0),
+                c < live8);
+    }
+  } else {
+    for (int i = tid; i < page * chunks; i += kAttnThreads)
+      cp_async16(ks + (size_t)(i / chunks) * (D + 16) + (i % chunks) * 16, kg + (size_t)i * 16,
+                 true);
+  }
   for (int i = tid; i < page / 4; i += kAttnThreads) {
     cp_async16(ksc + 4 * i, src.k_scales + off * page + 4 * i, true);
     cp_async16(vsc + 4 * i, src.v_scales + off * page + 4 * i, true);
   }
   cp_async_commit();
-  for (int i = tid; i < page * chunks; i += kAttnThreads) {
-    const int r = i / chunks;
-    cp_async16(vs + (size_t)r * D + v_chunk(r, i % chunks, chunks) * 16, vg + (size_t)i * 16,
-               true);
+  if constexpr (ANYD) {
+    for (int i = tid; i < page * c8; i += kAttnThreads) {
+      const int r = i / c8, c = i % c8;
+      cp_async8(vs + (size_t)r * Dp + c * 8, vg + (size_t)r * D + (c < live8 ? c * 8 : 0),
+                c < live8);
+    }
+  } else {
+    for (int i = tid; i < page * chunks; i += kAttnThreads) {
+      const int r = i / chunks;
+      cp_async16(vs + (size_t)r * D + v_chunk(r, i % chunks, chunks) * 16, vg + (size_t)i * 16,
+                 true);
+    }
   }
   cp_async_commit();
 }
 
 // One split's partial of R rows (the first n_rows real, their queries q
-// [n_rows][D]): pages [p_begin, p_end) of the sequence, the first at table
+// [n_rows][D]; ANYD: shared memory laid out over src.Dp): pages [p_begin, p_end) of the sequence, the first at table
 // entry `entry0` (the caller loads it early). Row r's query position is
 // qpos_base + (r0 + r) / group. The queries' loads, the first page's copy and
 // the queries' stores are issued in that order, so their latencies overlap.
@@ -257,15 +295,16 @@ __device__ __forceinline__ void copy_page(const PageSrc& src, int entry, unsigne
 // [R][D] its acc[d] = sum_t p[t] * v[t][d]; it ends with a __syncthreads.
 // The caller has not used shared memory before, and reads sm.acc before it
 // uses sm.sc (the same bytes).
-template <int R, int SLOTS, typename T>
+template <int R, int SLOTS, bool ANYD, typename T>
 __device__ void split_partial(const PageSrc& src, const AttnSmem<R, kAttnTerms<T>>& sm,
                               const T* q, int n_rows, int r0, int group, int qpos_base,
                               int p_begin, int p_end, int entry0, float sm_scale) {
   constexpr int TERMS = kAttnTerms<T>;
   constexpr int NT = AttnSmem<R, TERMS>::NT, RP = AttnSmem<R, TERMS>::RP;
-  const int page = src.page, D = src.D, steps = D / 16, key_tiles = page / 16;
+  const int page = src.page, D = src.D, Dp = ANYD ? src.Dp : D, steps = Dp / 16;
+  const int key_tiles = page / 16;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane / 4, tig = lane % 4;
-  const size_t slot_bytes = attn_slot_bytes(page, D);
+  const size_t slot_bytes = attn_slot_bytes(page, Dp);
   const bool pv_warp = 32 * warp < D;  // warps that own output dimensions
   float oacc[2][NT][4];  // O^T of d 32 warp + 4g + 2i (+ 1), rows 2tig (+ 1)
 #pragma unroll
@@ -275,10 +314,10 @@ __device__ void split_partial(const PageSrc& src, const AttnSmem<R, kAttnTerms<T
 #pragma unroll
       for (int e = 0; e < 4; ++e) oacc[i][nt][e] = 0.f;
   {
-    QueryStage<R, T> qs;
-    qs.load(q, n_rows, D);
-    copy_page(src, entry0, sm.slots);
-    qs.store(sm, D);
+    QueryStage<R, T, ANYD> qs;
+    qs.load(q, n_rows, D, Dp);
+    copy_page<ANYD>(src, entry0, sm.slots);
+    qs.store(sm, Dp);
   }
   for (int r = tid; r < RP; r += kAttnThreads) {
     sm.m[r] = kNegInf;
@@ -290,10 +329,11 @@ __device__ void split_partial(const PageSrc& src, const AttnSmem<R, kAttnTerms<T
     if (j >= p_end) break;
     const bool more = SLOTS > 1 && j + 1 < p_end;
     unsigned char* slot = sm.slots + (SLOTS > 1 ? (jj & 1) : 0) * slot_bytes;
-    if (more) copy_page(src, src.table_row[j + 1], sm.slots + ((jj + 1) & 1) * slot_bytes);
+    if (more)
+      copy_page<ANYD>(src, src.table_row[j + 1], sm.slots + ((jj + 1) & 1) * slot_bytes);
     const int8_t* ks = reinterpret_cast<const int8_t*>(slot);
-    const int8_t* vs = ks + (size_t)page * (D + 16);
-    const float* ksc = reinterpret_cast<const float*>(vs + (size_t)page * D);
+    const int8_t* vs = ks + (size_t)page * (Dp + 16);
+    const float* ksc = reinterpret_cast<const float*>(vs + (size_t)page * Dp);
     const float* vsc = ksc + page;
     if (more) cp_async_wait<3>(); else cp_async_wait<1>();  // K and scales of page j landed
     __syncthreads();
@@ -308,6 +348,40 @@ __device__ void split_partial(const PageSrc& src, const AttnSmem<R, kAttnTerms<T
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           sacc[i][nt][e] = i * kAttnWarps + warp < key_tiles ? 0.f : kNegInf;
+    if constexpr (ANYD) {  // a k-step's 4 bytes of each key row a load
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {
+        if (s >= steps) break;
+        uint2 b[NT][TERMS];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int p = 0; p < TERMS; ++p)
+            b[nt][p] = sm.qf[((p * NT + nt) * steps + s) * 32 + lane];
+        uint32_t a[kKeyTiles][4];
+#pragma unroll
+        for (int i = 0; i < kKeyTiles; ++i) {
+          const int kt = i * kAttnWarps + warp;
+          if (kt >= key_tiles) continue;
+          const int8_t* k0 = ks + (size_t)(16 * kt + g) * (Dp + 16) + tig * (Dp / 4) + 4 * s;
+          const uint32_t x0 = *reinterpret_cast<const uint32_t*>(k0);
+          const uint32_t x8 = *reinterpret_cast<const uint32_t*>(k0 + 8 * (Dp + 16));
+          a[i][0] = s8x2_bf16(__byte_perm(x0, 0u, 0x1100u));
+          a[i][1] = s8x2_bf16(__byte_perm(x8, 0u, 0x1100u));
+          a[i][2] = s8x2_bf16(__byte_perm(x0, 0u, 0x3322u));
+          a[i][3] = s8x2_bf16(__byte_perm(x8, 0u, 0x3322u));
+        }
+#pragma unroll
+        for (int p = 0; p < TERMS; ++p)
+#pragma unroll
+          for (int i = 0; i < kKeyTiles; ++i) {
+            if (i * kAttnWarps + warp >= key_tiles) continue;
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+              mma_bf16(sacc[i][nt], a[i], b[nt][p].x, b[nt][p].y, sacc[i][nt]);
+          }
+      }
+    } else {
 #pragma unroll
     for (int c = 0; c < 2; ++c) {  // 64 d a chunk (D of 64 or 128)
       if (64 * c >= D) break;
@@ -349,6 +423,7 @@ __device__ void split_partial(const PageSrc& src, const AttnSmem<R, kAttnTerms<T
               mma_bf16(sacc[i][nt], a[i], b[nt][p].x, b[nt][p].y, sacc[i][nt]);
           }
       }
+    }
     }
     // scale by the key's scale and sm_scale; mask key_pos <= q_pos
 #pragma unroll
@@ -478,8 +553,12 @@ __device__ void split_partial(const PageSrc& src, const AttnSmem<R, kAttnTerms<T
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = 16 * t + 2 * tig + (e & 1) + 8 * (e >> 1);
-          wv[e][0] = *reinterpret_cast<const uint32_t*>(
-              vs + (size_t)r * D + v_chunk(r, col / 16, chunks) * 16 + col % 16);
+          if constexpr (ANYD)  // the columns past Dp hold nothing: zero
+            wv[e][0] = col < Dp ? *reinterpret_cast<const uint32_t*>(vs + (size_t)r * Dp + col)
+                                : 0u;
+          else
+            wv[e][0] = *reinterpret_cast<const uint32_t*>(
+                vs + (size_t)r * D + v_chunk(r, col / 16, chunks) * 16 + col % 16);
         }
         uint2 b[NT][TERMS];
 #pragma unroll
@@ -508,8 +587,8 @@ __device__ void split_partial(const PageSrc& src, const AttnSmem<R, kAttnTerms<T
       for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int row = 8 * nt + 2 * tig + (e & 1);
-          if (row < R) sm.acc[row * D + 32 * warp + 4 * g + 2 * i + (e >> 1)] = oacc[i][nt][e];
+          const int row = 8 * nt + 2 * tig + (e & 1), d = 32 * warp + 4 * g + 2 * i + (e >> 1);
+          if (row < R && (!ANYD || d < D)) sm.acc[row * D + d] = oacc[i][nt][e];
         }
   }
   __syncthreads();
@@ -556,12 +635,13 @@ __device__ void empty_partial(const AttnSmem<R, TERMS>& sm, int D) {
 // the kernel. A tile is a decode block's G rows (tile_id the (sequence, kv
 // head)) or a window row tile. `out` is the tile's first row; ws holds
 // [n_tile_ids][n_splits_max][R][D] acc, then [..][R][2] m and l.
-template <int R, int TERMS, typename T>
+template <int R, bool ANYD, int TERMS, typename T>
 __device__ void finish_split(const AttnSmem<R, TERMS>& sm, T* out, float* ws, int* counters,
                              int n_rows, int D, int page, int n_splits, int n_splits_max,
                              size_t tile_id, size_t n_tile_ids, int s) {
   constexpr int E = (R * 128 + kAttnThreads - 1) / kAttnThreads;  // elements a thread at D = 128
   const int tid = threadIdx.x, RD = R * D, lg_d = D == 128 ? 7 : 6;
+  auto row_of = [&](int e) { return ANYD ? e / D : e >> lg_d; };
   if (n_splits <= 1) {  // each row's factors once, then its elements
     float* f = sm.red_m;  // [3][R]: a, b, l
     if (tid < R) {
@@ -573,7 +653,7 @@ __device__ void finish_split(const AttnSmem<R, TERMS>& sm, T* out, float* ws, in
     float v[E];  // every element first, then the stores (which could alias)
 #pragma unroll
     for (int k = 0; k < E; ++k) {
-      const int e = tid + k * kAttnThreads, r = e >> lg_d;
+      const int e = tid + k * kAttnThreads, r = row_of(e);
       v[k] = e < n_rows * D ? finish(merge_acc(0.f, sm.acc[e], f[r], f[R + r]), f[2 * R + r])
                             : 0.f;
     }
@@ -646,7 +726,7 @@ __device__ void finish_split(const AttnSmem<R, TERMS>& sm, T* out, float* ws, in
         for (int k = 0; k < E; ++k) {
           const int e = tid + k * kAttnThreads;
           if (e < RD) {
-            const int r = e >> lg_d;
+            const int r = row_of(e);
             acc[k] = merge_acc(acc[k], p[u][k], az[(z + u) * R + r], bz[(z + u) * R + r]);
           }
         }
@@ -659,7 +739,7 @@ __device__ void finish_split(const AttnSmem<R, TERMS>& sm, T* out, float* ws, in
 #pragma unroll
   for (int k = 0; k < E; ++k) {
     const int e = tid + k * kAttnThreads;
-    acc[k] = e < n_rows * D ? finish(acc[k], rl[e >> lg_d]) : 0.f;
+    acc[k] = e < n_rows * D ? finish(acc[k], rl[row_of(e)]) : 0.f;
   }
 #pragma unroll
   for (int k = 0; k < E; ++k) {

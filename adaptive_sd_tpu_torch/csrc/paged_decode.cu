@@ -25,7 +25,7 @@ namespace {
 
 constexpr int kSlots = asd::kPagesPerSplit > 1 ? 2 : 1;
 
-template <typename T, int R>
+template <typename T, int R, bool ANYD>
 __global__ void __launch_bounds__(asd::kAttnThreads)
 paged_decode_kernel(const T* __restrict__ q, const int8_t* __restrict__ k_pages,
                     const float* __restrict__ k_scales, const int8_t* __restrict__ v_pages,
@@ -41,31 +41,33 @@ paged_decode_kernel(const T* __restrict__ q, const int8_t* __restrict__ k_pages,
   const int n_splits = (n_used + asd::kPagesPerSplit - 1) / asd::kPagesPerSplit;
   const int bh = b * n_kv + h;
   if (s >= max(n_splits, 1)) return;
-  asd::AttnSmem<R, asd::kAttnTerms<T>> sm(smem, page, D);
+  const int Dp = ANYD ? asd::attn_dpad(D) : D;
+  asd::AttnSmem<R, asd::kAttnTerms<T>> sm(smem, page, Dp);
   if (n_splits > 0) {
     const asd::PageSrc src{block_tables + (size_t)b * max_pages, k_pages, k_scales, v_pages,
-                           v_scales, n_pages, page, D, h};
-    asd::split_partial<R, kSlots>(src, sm, q + (size_t)bh * R * D, R, 0, R, seq_len - 1,
+                           v_scales, n_pages, page, D, h, Dp};
+    asd::split_partial<R, kSlots, ANYD>(src, sm, q + (size_t)bh * R * D, R, 0, R, seq_len - 1,
                                   s * asd::kPagesPerSplit,
                                   min(n_used, (s + 1) * asd::kPagesPerSplit), entry0, sm_scale);
   } else {
     asd::empty_partial(sm, D);
   }
-  asd::finish_split<R>(sm, out + (size_t)bh * R * D, ws, counters, R, D, page, n_splits,
+  asd::finish_split<R, ANYD>(sm, out + (size_t)bh * R * D, ws, counters, R, D, page, n_splits,
                        n_splits_max, bh, (size_t)gridDim.z * n_kv, s);
 }
 
-template <typename T, int R>
+template <typename T, int R, bool ANYD>
 int launch(const void* q, const void* kp, const void* ks, const void* vp, const void* vs,
            const void* tables, const void* lens, void* out, void* ws, void* counters, int B,
            int n_kv, int D, int n_pages, int page, int max_pages, int n_splits_max,
            float sm_scale, cudaStream_t stream) {
   static size_t smem_done = 0;
-  const size_t smem = asd::AttnSmem<R, asd::kAttnTerms<T>>::bytes(page, D, kSlots);
-  cudaError_t err = asd::ensure_smem(paged_decode_kernel<T, R>, smem, &smem_done);
+  const size_t smem =
+      asd::AttnSmem<R, asd::kAttnTerms<T>>::bytes(page, ANYD ? asd::attn_dpad(D) : D, kSlots);
+  cudaError_t err = asd::ensure_smem(paged_decode_kernel<T, R, ANYD>, smem, &smem_done);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(n_splits_max, n_kv, B);
-  paged_decode_kernel<T, R><<<grid, asd::kAttnThreads, smem, stream>>>(
+  paged_decode_kernel<T, R, ANYD><<<grid, asd::kAttnThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const int8_t*>(kp), static_cast<const float*>(ks),
       static_cast<const int8_t*>(vp), static_cast<const float*>(vs),
       static_cast<const int*>(tables), static_cast<const int*>(lens), static_cast<T*>(out),
@@ -79,10 +81,15 @@ int run(int G, const void* q, const void* kp, const void* ks, const void* vp, co
         const void* tables, const void* lens, void* out, void* ws, void* counters, int B,
         int n_kv, int D, int n_pages, int page, int max_pages, int n_splits_max,
         float sm_scale, cudaStream_t stream) {
+  const bool any_d = D != 64 && D != 128;
 #define ASD_CASE(R)                                                                           \
   case R:                                                                                     \
-    return launch<T, R>(q, kp, ks, vp, vs, tables, lens, out, ws, counters, B, n_kv, D,       \
-                        n_pages, page, max_pages, n_splits_max, sm_scale, stream);
+    return any_d ? launch<T, R, true>(q, kp, ks, vp, vs, tables, lens, out, ws, counters, B,  \
+                                      n_kv, D, n_pages, page, max_pages, n_splits_max,        \
+                                      sm_scale, stream)                                       \
+                 : launch<T, R, false>(q, kp, ks, vp, vs, tables, lens, out, ws, counters, B, \
+                                       n_kv, D, n_pages, page, max_pages, n_splits_max,       \
+                                       sm_scale, stream);
   switch (G) {
     ASD_CASE(1) ASD_CASE(2) ASD_CASE(3) ASD_CASE(4) ASD_CASE(5) ASD_CASE(6) ASD_CASE(7)
     ASD_CASE(8)
@@ -98,15 +105,15 @@ int run(int G, const void* q, const void* kp, const void* ks, const void* vp, co
 // seq_lens [B] i32. Used when max_pages > kPagesPerSplit: ws, at least
 // B * n_kv * max_pages * G * (D + 2) f32 (the splits' acc, then their m and
 // l), and counters [B, n_kv] i32, zero on entry and left zero (one buffer
-// serves every launch on a stream). Requires G <= 8, D of 64 or 128, page a
-// multiple of 16 up to 128.
+// serves every launch on a stream). Requires G <= 8, D a multiple of 8 up to
+// 128, page a multiple of 16 up to 128.
 extern "C" int asd_paged_decode(const void* q, const void* k_pages, const void* k_scales,
                                 const void* v_pages, const void* v_scales,
                                 const void* block_tables, const void* seq_lens, void* out,
                                 void* ws, void* counters, int B, int n_kv, int G, int D,
                                 int n_pages, int page, int max_pages, float sm_scale,
                                 int is_bf16, void* stream) {
-  if (G < 1 || G > 8 || (D != 64 && D != 128) || page % 16 || page > asd::kMaxPage ||
+  if (G < 1 || G > 8 || D < 8 || D > 128 || D % 8 || page % 16 || page > asd::kMaxPage ||
       B <= 0 || max_pages <= 0)
     return (int)cudaErrorInvalidValue;
   const int n_splits_max = (max_pages + asd::kPagesPerSplit - 1) / asd::kPagesPerSplit;

@@ -37,7 +37,7 @@ namespace {
 constexpr int kWindowRows = 32;  // query rows a block (a tile), chosen by measurement (PERF.md)
 constexpr int kSlots = asd::kPagesPerSplit > 1 ? 2 : 1;
 
-template <typename T>
+template <typename T, bool ANYD>
 __global__ void __launch_bounds__(asd::kAttnThreads)
 paged_window_kernel(const T* __restrict__ q, const int8_t* __restrict__ k_pages,
                     const float* __restrict__ k_scales, const int8_t* __restrict__ v_pages,
@@ -59,33 +59,35 @@ paged_window_kernel(const T* __restrict__ q, const int8_t* __restrict__ k_pages,
   const int n_splits = (n_used + asd::kPagesPerSplit - 1) / asd::kPagesPerSplit;
   if (s >= max(n_splits, 1)) return;
 
-  asd::AttnSmem<R, asd::kAttnTerms<T>> sm(smem, page, D);
+  const int Dp = ANYD ? asd::attn_dpad(D) : D;
+  asd::AttnSmem<R, asd::kAttnTerms<T>> sm(smem, page, Dp);
   if (n_splits > 0) {
     const asd::PageSrc src{block_tables + (size_t)b * max_pages, k_pages, k_scales, v_pages,
-                           v_scales, n_pages, page, D, h};
-    asd::split_partial<R, kSlots>(src, sm, q + row0 * D, n_rows, r0, G, offset,
+                           v_scales, n_pages, page, D, h, Dp};
+    asd::split_partial<R, kSlots, ANYD>(src, sm, q + row0 * D, n_rows, r0, G, offset,
                                   s * asd::kPagesPerSplit,
                                   min(n_used, (s + 1) * asd::kPagesPerSplit), entry0, sm_scale);
   } else {
     asd::empty_partial(sm, D);
   }
-  asd::finish_split<R>(sm, out + row0 * D, ws, counters, n_rows, D, page, n_splits,
+  asd::finish_split<R, ANYD>(sm, out + row0 * D, ws, counters, n_rows, D, page, n_splits,
                        n_splits_max, (size_t)bh * gridDim.x + blockIdx.x,
                        (size_t)gridDim.z * gridDim.x, s);
 }
 
-template <typename T>
-int run(const void* q, const void* kp, const void* ks, const void* vp, const void* vs,
+template <typename T, bool ANYD>
+int launch(const void* q, const void* kp, const void* ks, const void* vp, const void* vs,
         const void* tables, const void* ctx, const void* offs, void* out, void* ws,
         void* counters, int B, int n_kv, int WG, int G, int D, int n_pages, int page,
         int max_pages, int tile0, int tiles, float sm_scale, cudaStream_t stream) {
   static size_t smem_done = 0;
-  const size_t smem = asd::AttnSmem<kWindowRows, asd::kAttnTerms<T>>::bytes(page, D, kSlots);
-  cudaError_t err = asd::ensure_smem(paged_window_kernel<T>, smem, &smem_done);
+  const size_t smem = asd::AttnSmem<kWindowRows, asd::kAttnTerms<T>>::bytes(
+      page, ANYD ? asd::attn_dpad(D) : D, kSlots);
+  cudaError_t err = asd::ensure_smem(paged_window_kernel<T, ANYD>, smem, &smem_done);
   if (err != cudaSuccess) return (int)err;
   const int n_splits_max = (max_pages + asd::kPagesPerSplit - 1) / asd::kPagesPerSplit;
   dim3 grid(tiles, n_splits_max, B * n_kv);
-  paged_window_kernel<T><<<grid, asd::kAttnThreads, smem, stream>>>(
+  paged_window_kernel<T, ANYD><<<grid, asd::kAttnThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const int8_t*>(kp), static_cast<const float*>(ks),
       static_cast<const int8_t*>(vp), static_cast<const float*>(vs),
       static_cast<const int*>(tables), static_cast<const int*>(ctx),
@@ -93,6 +95,17 @@ int run(const void* q, const void* kp, const void* ks, const void* vp, const voi
       static_cast<int*>(counters), n_kv, WG, G, D, n_pages, page, max_pages, n_splits_max, tile0,
       sm_scale);
   return (int)cudaGetLastError();
+}
+
+// The 64/128 instantiation, or ANYD for every other head dim
+template <typename T>
+int run(const void* q, const void* kp, const void* ks, const void* vp, const void* vs,
+        const void* tables, const void* ctx, const void* offs, void* out, void* ws,
+        void* counters, int B, int n_kv, int WG, int G, int D, int n_pages, int page,
+        int max_pages, int tile0, int tiles, float sm_scale, cudaStream_t stream) {
+  auto fn = D == 64 || D == 128 ? launch<T, false> : launch<T, true>;
+  return fn(q, kp, ks, vp, vs, tables, ctx, offs, out, ws, counters, B, n_kv, WG, G, D, n_pages,
+            page, max_pages, tile0, tiles, sm_scale, stream);
 }
 
 }  // namespace
@@ -107,8 +120,8 @@ extern "C" int asd_paged_window_rows() { return kWindowRows; }
 // Used when max_pages > kPagesPerSplit: ws, at least B * n_kv * tiles *
 // max_pages * kWindowRows * (D + 2) f32 (the splits' acc, then their m and
 // l), and counters [B, n_kv, tiles] i32, zero on entry and left zero (one
-// buffer serves every launch on a stream). Requires D of 64 or 128, page a
-// multiple of 16 up to 128.
+// buffer serves every launch on a stream). Requires D a multiple of 8 up to
+// 128, page a multiple of 16 up to 128.
 extern "C" int asd_paged_window(const void* q, const void* k_pages, const void* k_scales,
                                 const void* v_pages, const void* v_scales,
                                 const void* block_tables, const void* ctx_lens,
@@ -116,7 +129,7 @@ extern "C" int asd_paged_window(const void* q, const void* k_pages, const void* 
                                 int n_kv, int WG, int G, int D, int n_pages, int page,
                                 int max_pages, int tile0, int tiles, float sm_scale, int is_bf16,
                                 void* stream) {
-  if (G < 1 || (D != 64 && D != 128) || page % 16 || page > asd::kMaxPage || B <= 0 ||
+  if (G < 1 || D < 8 || D > 128 || D % 8 || page % 16 || page > asd::kMaxPage || B <= 0 ||
       WG <= 0 || max_pages <= 0 || tile0 < 0 || tiles < 1 ||
       (long long)(tile0 + tiles - 1) * kWindowRows >= WG)
     return (int)cudaErrorInvalidValue;

@@ -18,8 +18,10 @@ Design:
   an admission with ``_fold(admission counter, 1)`` and a drafted subgroup
   with a further fold, so the streams stay disjoint (the JAX scheduler's
   ``key(steps)`` / ``fold_in`` arithmetic).
-* The per-lane done/token/position scan is the Python loop; the JAX
-  package's optional C++ lane table is not bound here (``_nlanes`` is None).
+* The per-lane done/token/position scan runs in the C++ lane table
+  (native/allocator.cc ``asd_lanes_*``, engine/native_bridge.py, built with
+  g++ at first use) when the native library is available, and in the
+  identical Python loop otherwise, as in the JAX scheduler.
 """
 
 from __future__ import annotations
@@ -194,9 +196,11 @@ class ContinuousBatchingScheduler:
         }
         self._buckets: collections.Counter = collections.Counter()
         self._warm_buckets: set = set()  # lattice keys run once by warmup()
-        # the JAX package's C++ lane table is not bound in this port: the
-        # Python lane scan (_scan) is the only one
-        self._nlanes = None
+        from .native_bridge import make_lanes
+
+        # C++ lane table mirror (None -> Python scan). Lane choice stays in
+        # Python (lowest-free order matches the C++ admit scan; asserted).
+        self._nlanes = make_lanes(max_batch, self.page)
 
         # Device-resident scan carry (tokens/positions/budgets/generator kept
         # on the device between scan dispatches, so a steady-state round
@@ -658,8 +662,18 @@ class ContinuousBatchingScheduler:
             _fail_batch(exc)
             return 0
 
-        for lane, req in batch:
+        for lane, req in batch:  # batch order == native lowest-free-lane order
             self._lanes[lane] = req
+            if self._nlanes is not None:
+                # emissions before this admission's own sampled token: the
+                # verified draft prefix (drafted), or recomputed tokens from a
+                # preemption (resumed) — the native budget is what remains
+                pre = max(len(req.out_tokens) - 1, 0)
+                got = self._nlanes.admit(
+                    req.position, max(req.max_new - pre, 0), req.next_token
+                )
+                if got != lane:
+                    raise RuntimeError(f"native lane table diverged: {got} != {lane}")
         return len(batch)
 
     # ------------------------------------------------- page-pressure policy
@@ -756,6 +770,8 @@ class ContinuousBatchingScheduler:
         self.engine.allocator.free_request(req.request_id)
         self._tables[lane, :] = self._oob_page
         self._lanes[lane] = None
+        if self._nlanes is not None:
+            self._nlanes.release(lane)
         # the draft admission already ran; its accepted prefix lives in
         # out_tokens, so the request resumes as a plain recompute
         req.draft = None
@@ -928,6 +944,8 @@ class ContinuousBatchingScheduler:
         self.engine.allocator.free_request(req.request_id)
         self._tables[lane, :] = self._oob_page  # stale rows must not alias
         self._lanes[lane] = None
+        if self._nlanes is not None:
+            self._nlanes.release(lane)
         self.completed += 1
         if req.on_done is not None:
             try:
@@ -938,7 +956,21 @@ class ContinuousBatchingScheduler:
 
     def _scan(self) -> list[tuple[int, SchedRequest, bool]]:
         """Per-step lane scan: retire finished lanes (budget/eos), return
-        [(lane, request, needs_new_page)] for the lanes to step."""
+        [(lane, request, needs_new_page)] for the lanes to step. Native C++
+        table when built, identical Python loop otherwise."""
+        if self._nlanes is not None:
+            finished, active, _toks, _pos, needs = self._nlanes.step_prepare(
+                self.engine.eos_id
+            )
+            for lane in finished:
+                req = self._lanes[lane]
+                if req is not None:
+                    self._retire(lane, req)
+            return [
+                (lane, self._lanes[lane], bool(np_))
+                for lane, np_ in zip(active, needs)
+                if self._lanes[lane] is not None
+            ]
         still = []
         for lane, req in enumerate(self._lanes):
             if req is None:
@@ -1018,6 +1050,8 @@ class ContinuousBatchingScheduler:
                 req.out_topk_ids.append(q_out[0][lane])
                 req.out_topk_probs.append(q_out[1][lane])
             req.position += 1
+            if self._nlanes is not None:
+                self._nlanes.advance(lane, req.next_token)
         return len(still)
 
     def _sync_carry(self, tokens, positions, temps, tps, remaining) -> None:
@@ -1127,6 +1161,9 @@ class ContinuousBatchingScheduler:
                 req.out_topk_probs.extend(q_out[1][lane, :k])
             req.position += k
             req.next_token = int(out_t[lane, k - 1])
+            if self._nlanes is not None:
+                for t in out_t[lane, :k]:
+                    self._nlanes.advance(lane, int(t))
             applied.append(lane)
         if not skip_all and self._carry_host is not None:
             self._advance_mirror(out_t, emitted, applied)

@@ -15,6 +15,7 @@ from .convert import params_from_jax
 from .qwen import (
     decode_step,
     fuse_projections,
+    init_params,
     init_params_quantized,
     logits_at,
     prefill,
@@ -24,7 +25,8 @@ from .qwen import (
 
 __all__ = [
     "DEFAULT_CASCADE", "QWEN25_14B", "QWEN25_7B", "REGISTRY", "TINY", "TINY128",
-    "ModelSpec", "decode_step", "fuse_projections", "get_spec", "init_params_quantized",
+    "ModelSpec", "decode_step", "fuse_projections", "get_spec", "init_params",
+    "init_params_quantized",
     "logits_at", "params_from_jax", "prefill", "prefill_window", "quantize_model",
     "scaled_spec",
 ]

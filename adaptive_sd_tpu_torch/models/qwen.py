@@ -93,6 +93,57 @@ def _int4(w: torch.Tensor, group_size: Optional[int] = 128) -> QuantizedTensor:
     return quantize_int4(w, group_size=gs)
 
 
+def init_params(
+    spec: ModelSpec,
+    generator: Union[torch.Generator, int] = 0,
+    dtype=torch.bfloat16,
+    *,
+    device=None,
+) -> Params:
+    """Random float weights with realistic scales, unfused and unquantised
+    (counterpart of ``adaptive_sd_tpu/models/qwen.py::init_params``): the
+    layout :func:`fuse_projections` and :func:`quantize_model` take, and
+    the one models/tiny_train.py trains and models/loader.py writes.
+    ``generator`` is a ``torch.Generator`` on ``device`` (default CUDA) or an
+    int seed for one; draws are f32 normals over sqrt(fan_in), in the JAX
+    function's order (which its numbers differ from: tests hand the JAX
+    weights across instead)."""
+    device = resolve_device(device)
+    if isinstance(generator, int):
+        generator = torch.Generator(device=device).manual_seed(generator)
+
+    def dense(shape, fan_in):
+        w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+        return (w / math.sqrt(fan_in)).to(dtype)
+
+    def const(value, n):
+        return torch.full((n,), value, dtype=dtype, device=device)
+
+    H, D = spec.hidden, spec.head_dim
+    n_q, n_kv, Fd, V = spec.n_heads, spec.n_kv_heads, spec.ffn, spec.vocab_size
+    params: Params = {"embed": dense((V, H), H), "final_norm": const(1.0, H), "layers": []}
+    if not spec.tie_embeddings:
+        params["lm_head"] = dense((H, V), H)
+    for _ in range(spec.n_layers):
+        layer = {
+            "input_norm": const(1.0, H),
+            "post_norm": const(1.0, H),
+            "q_proj": dense((H, n_q * D), H),
+            "k_proj": dense((H, n_kv * D), H),
+            "v_proj": dense((H, n_kv * D), H),
+            "o_proj": dense((n_q * D, H), n_q * D),
+            "gate_proj": dense((H, Fd), H),
+            "up_proj": dense((H, Fd), H),
+            "down_proj": dense((Fd, H), Fd),
+        }
+        if spec.attn_bias:
+            layer["q_bias"] = const(0.0, n_q * D)
+            layer["k_bias"] = const(0.0, n_kv * D)
+            layer["v_bias"] = const(0.0, n_kv * D)
+        params["layers"].append(layer)
+    return params
+
+
 def init_params_quantized(
     spec: ModelSpec,
     generator: Union[torch.Generator, int] = 0,

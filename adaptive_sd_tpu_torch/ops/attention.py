@@ -15,7 +15,9 @@
   block per split (the window kernel per split of each tile of
   :func:`window_rows` query rows, :func:`window_tile_splits`) and merge the
   splits' partial softmaxes in split order with one merge, so a query row
-  gets the same bits from either kernel.
+  gets the same bits from either kernel. Head dims: any multiple of 8 up to
+  128 (64 and 128 take the kernels' 64-wide path; the others, the rehearsal
+  tiers' 40 and 48 among them, a zero-padded one, csrc/paged_attention.cuh).
 * :func:`prefill_attention` is the counterpart of ``jax.nn.dot_product_attention``
   (XLA's op, not a Pallas kernel) and calls
   ``torch.nn.functional.scaled_dot_product_attention``.
@@ -152,17 +154,17 @@ def _check_paged(q, k_pages, k_scales, v_pages, v_scales, block_tables, *lens):
         raise TypeError("K/V scales must be float32")
     if block_tables.dtype != torch.int32 or any(x.dtype != torch.int32 for x in lens):
         raise TypeError("block tables and lengths must be int32")
+    D = q.shape[-1]
+    if D % 8 or not 8 <= D <= 128:
+        raise ValueError(f"head_dim must be a multiple of 8 up to 128, got {D}")
+    page = k_pages.shape[2]
+    if page % 16 or page > 128:
+        raise ValueError(f"page size must be a multiple of 16 up to 128, got {page}")
     tensors = (q, k_pages, k_scales, v_pages, v_scales, block_tables, *lens)
     if not all(t.is_cuda for t in tensors):
         raise ValueError("the paged attention kernels take CUDA tensors")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the paged attention kernels take contiguous tensors")
-    D = q.shape[-1]
-    if D not in (64, 128):
-        raise ValueError(f"head_dim must be 64 or 128, got {D}")
-    page = k_pages.shape[2]
-    if page % 16 or page > 128:
-        raise ValueError(f"page size must be a multiple of 16 up to 128, got {page}")
 
 
 def paged_attention(

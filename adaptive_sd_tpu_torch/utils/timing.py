@@ -3,9 +3,10 @@
 Role parity: reference ``src/utils/timing_utils.py`` (Timer context manager,
 timing decorators, thread-safe PerformanceProfiler with per-op history and
 p95/p99, RateLimiter, Timeout, global profiler singleton); own copy of
-``adaptive_sd_tpu/utils/timing.py`` without its profiler-trace context. Device
-work is async: ``Timer(sync=torch.cuda.synchronize)`` brackets it, as the
-reference does (real_model_pipeline.py:124-142).
+``adaptive_sd_tpu/utils/timing.py``, whose ``XprofTrace`` (a jax.profiler
+trace) becomes :class:`TorchProfilerTrace` (torch.profiler, a Chrome trace).
+Device work is async: ``Timer(sync=torch.cuda.synchronize)`` brackets it, as
+the reference does (real_model_pipeline.py:124-142).
 """
 
 from __future__ import annotations
@@ -198,3 +199,38 @@ class Deadline:
 async def with_timeout(coro, budget_s: float):
     """Async timeout helper."""
     return await asyncio.wait_for(coro, timeout=budget_s)
+
+
+class TorchProfilerTrace:
+    """torch.profiler trace context, the port's counterpart of
+    ``adaptive_sd_tpu/utils/timing.py::XprofTrace``: what runs inside is
+    traced on the host and, where CUDA is available, on the card, and a
+    Chrome trace (chrome://tracing, Perfetto) is written into ``log_dir`` on
+    exit; ``path`` names it. ``key_averages()`` of the finished profile is
+    kept as ``events``."""
+
+    def __init__(self, log_dir: str = "asd_torch_trace") -> None:
+        self.log_dir = log_dir
+        self.path: Optional[str] = None
+        self.events = None
+        self._prof = None
+
+    def __enter__(self) -> "TorchProfilerTrace":
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        self._prof = profile(activities=activities)
+        self._prof.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        import os
+
+        self._prof.__exit__(*exc)
+        os.makedirs(self.log_dir, exist_ok=True)
+        self.path = os.path.join(self.log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+        self._prof.export_chrome_trace(self.path)
+        self.events = self._prof.key_averages()

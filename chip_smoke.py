@@ -28,6 +28,14 @@ Phases, one JSON line each; any failure exits non-zero:
    requests give the CPU's tokens, accepted counts and preemption counts
    (W8A8 engines: the CPU's logprobs on the CPU's tokens and every count; a
    greedy walk may part from the CPU's only at a near-tie, which is shown).
+   checkpoint: an HF-format checkpoint at Qwen2.5-7B widths (depth cut to
+   CKPT_LAYERS, BF16 tensors from a seeded generator, two shards) is written
+   by the port's safetensors writer; ``spec_from_checkpoint`` gives its widths,
+   ``verify_checkpoint`` passes, ``load_params`` at 8 and 4 bits on the card
+   gives every QuantizedTensor bit for bit equal to ``quantize_model`` of the
+   same weights upcast to f32; greedy ``generate`` from the loaded INT8 params
+   gives the in-memory engine's tokens and the tier (INT8, then grouped INT4)
+   accepts its own output in full. Load seconds, bytes read and peak RSS.
 4. serve: the cascade hop of the default hierarchy at full width and depth,
    INT8 weights and KV: Qwen2.5-7B (bf16 activations) ``generate``s drafts for
    four prompts, Qwen2.5-14B (f32 activations, prefix cache on)
@@ -37,8 +45,9 @@ Phases, one JSON line each; any failure exits non-zero:
    own greedy output in full too.
    scheduler: ``ContinuousBatchingScheduler`` over a W8A8 (``act_quant``)
    engine on the 7B tier's INT8 weights, 28 layers, 8 lanes, 8-step scans:
-   twelve requests in two waves, then the same under KV-page pressure with
-   recompute and with swap preemption (outputs equal to the unpressured run),
+   twelve requests in two waves on the C++ lane table, then under
+   KV-page pressure with recompute and with swap preemption (outputs equal
+   to the unpressured run),
    then every output resubmitted as a draft; tokens/s, dispatches by kind and
    the scan's device idle share.
 5. per_channel: an engine of Qwen2.5-7B width (depth cut to 4 layers) with
@@ -78,28 +87,49 @@ Phases, one JSON line each; any failure exits non-zero:
    the device's busy time by kernel (torch.profiler), and the seconds of a
    512-token prefill and its device time by kernel; the INT4 tiers also with
    f32 activations.
-8. path_shapes: the matmul wrappers collected every distinct (M, K, N, group
-   size, type) that paths 4, 5 and 6 launched them at, and the paged window
-   wrapper every forward's call (batch, W, offsets, window lengths, G, type;
-   a line gives the histograms of W and of the cached pages); each kernel is held
-   against its plain version at every one of them.
+8. rehearsal: scripts/torch_real_smoke.py's trained rehearsal on the card:
+   the three rehearsal tiers (head dims 48, 40, 64) trained with ``train_lm``,
+   written by ``save_checkpoint``, loaded by ``load_params`` into the
+   cascade, the predictor fitted on their scored drafts, the suites answered;
+   its assertions must pass (cascade and fixed-largest accuracy above 0,
+   preservation at least 0.5, top-tier share at most 0.5). Before it, the
+   first tier trained REHEARSAL_CHECK_STEPS steps on the card from the CPU's
+   initial weights gives the CPU's loss curve within TRAIN_TOL; one rehearsal
+   request runs inside ``TorchProfilerTrace`` and must leave a non-empty
+   Chrome trace.
+9. path_shapes: the matmul wrappers collected every distinct (M, K, N, group
+   size, type) that the paths from checkpoint to rehearsal launched them at,
+   and the paged window wrapper every forward's call (batch, W, offsets,
+   window lengths, G, head dim, type; a line gives the histograms of W and
+   of the cached pages); each kernel is held against its plain version at
+   every one of them.
 
-The kernels' launch counters are zeroed just before each of the paths 4, 5
-and 6 (the scheduler, scheduled_pipeline and routing paths too) and read just after;
+The kernels' launch counters are zeroed just before each of the paths 4, 5,
+6 and 8 (the scheduler, checkpoint, scheduled_pipeline and routing paths too)
+and read just after;
 every kernel of a path must have been launched. The scheduled_pipeline path
 counts the scheduled plane's runs only, not the fused runs it is held against.
 The last lines: the card's name and power limit as nvidia-smi reports them,
 one ``{"kernels": [...]}`` summary, and ``{"ok": true, "device": {...}}``.
-Weights are random, made on the card from fixed seeds. It exits non-zero
+Weights are random, made on the card from fixed seeds, but for the
+rehearsal's, trained on the card. Every scheduler runs on the C++ lane table
+(native/allocator.cc, built with g++), which is asserted bound; the
+reference_sched phase holds it against the Python lane scan on the CPU. Each
+phase's wall seconds are printed (``phase_seconds``). It exits non-zero
 without a CUDA device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import importlib.util
 import itertools
 import json
 import math
+import os
+import pathlib
+import resource
 import subprocess
 import sys
 import tempfile
@@ -120,6 +150,7 @@ from adaptive_sd_tpu_torch.cascade import (
 )
 from adaptive_sd_tpu_torch.core.types import RequestContext
 from adaptive_sd_tpu_torch.engine import ContinuousBatchingScheduler, TierEngine
+from adaptive_sd_tpu_torch.engine import native_bridge
 from adaptive_sd_tpu_torch.engine.decode import _bucket_len
 from adaptive_sd_tpu_torch.evalx import (
     LambdaSweepHarness,
@@ -137,10 +168,13 @@ from adaptive_sd_tpu_torch.models import (
     DEFAULT_CASCADE,
     TINY128,
     get_spec,
+    init_params,
     init_params_quantized,
     scaled_spec,
 )
-from adaptive_sd_tpu_torch.models.qwen import quantize_model
+from adaptive_sd_tpu_torch.models import loader
+from adaptive_sd_tpu_torch.models import tiny_train
+from adaptive_sd_tpu_torch.models.qwen import fuse_projections, quantize_model
 from adaptive_sd_tpu_torch.policy.dp import optimal_stopping_rule
 from adaptive_sd_tpu_torch.predict import (
     INLINE_SLICE,
@@ -154,6 +188,7 @@ from adaptive_sd_tpu_torch.predict import (
 from adaptive_sd_tpu_torch.ops import _kernels
 from adaptive_sd_tpu_torch.ops import attention as A
 from adaptive_sd_tpu_torch.ops import matmul_q as MQ
+from adaptive_sd_tpu_torch.utils import TorchProfilerTrace
 from adaptive_sd_tpu_torch.utils.metrics import global_metrics
 
 MAX_NEW = 32
@@ -194,6 +229,25 @@ INLINE_LAM = 0.05  # lambda of tier 0's on-device policy
 # reference_sched, W8A8 engines on two devices (TINY128, f32): the tolerance of
 # the teacher-forced logprobs
 W8A8_FORCED_TOL = 0.08
+# the checkpoint phase: Qwen2.5-7B widths, depth cut to two layers (~3.1 GB
+# of BF16 tensors), written in two shards
+CKPT_LAYERS = 2
+CKPT_PROMPT_LENS = (37, 150, 300)
+# the rehearsal phase: scripts/torch_real_smoke.py --rehearse on the card;
+# the first tier's loss curve over its first steps, card against CPU (f32,
+# TF32 off: sums in another order)
+REHEARSAL_CHECK_STEPS = 20
+TRAIN_TOL = 1e-3
+
+
+def _load_rehearsal_script():
+    """scripts/torch_real_smoke.py as a module (scripts/ is no package)."""
+    path = pathlib.Path(__file__).resolve().parent / "scripts" / "torch_real_smoke.py"
+    spec = importlib.util.spec_from_file_location("torch_real_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
 SCHED_LANES = 8
 SCHED_SCAN = 8
 SCHED_MAX_NEW = 160
@@ -214,7 +268,7 @@ INT8_M_WINDOWS = (32, 192, 512, 576, 2304)
 # every epoch), the tolerance of the card's per-epoch losses against the
 # CPU's, the quality-gate controller's target and warm-up, the sweep's
 # lambdas and gsm-style items, and the walk's workload size and lambdas
-ROUTE_SUITES = {"factual-qa": 6, "gsm-style": 5, "humaneval-style": 5}
+ROUTE_SUITES = {"factual-qa": 2, "gsm-style": 2, "humaneval-style": 2}
 ROUTE_MAX_NEW = 16
 ROUTE_SYNTHETIC = 200
 ROUTE_EPOCHS = 12
@@ -222,7 +276,7 @@ ROUTE_BATCH = 64
 FIT_TOL = 1e-3
 GATE_TARGET = 0.9
 GATE_WARMUP = 2
-ROUTE_REQUESTS = 8
+ROUTE_REQUESTS = 4
 SWEEP_LAMBDAS = (0.3, 3.0)
 SWEEP_ITEMS = 4
 WALK_ITEMS = 12
@@ -552,9 +606,16 @@ def phase_kernels(dev, rates, timer) -> dict:
     # peak times the terms (three for f32), the rate the kernels run at.
     # Library yardstick, window only: scaled_dot_product_attention on K/V
     # gathered and dequantised outside the timed call, with the same mask.
-    for model, dtype in zip(DEFAULT_CASCADE[:2], TIER_DTYPES):
-        s = get_spec(model)
-        n_kv, G, D = s.n_kv_heads, s.q_group, s.head_dim
+    # The rehearsal tiers' head layouts (head dims 48 and 40, bf16 as they
+    # serve) take the table rows: the kernels' zero-padded head dims.
+    heads = lambda s: (s.n_kv_heads, s.q_group, s.head_dim)  # noqa: E731
+    layouts = [(m, *heads(get_spec(m)), dt, True)
+               for m, dt in zip(DEFAULT_CASCADE[:2], TIER_DTYPES)]
+    vocab = tiny_train.CharTokenizer().vocab_size
+    for kw in _load_rehearsal_script().REHEARSAL_RECIPES[:2]:  # head dims 48, 40
+        layouts.append((kw["name"], *heads(tiny_train.TierRecipe(**kw).spec(vocab)),
+                        torch.bfloat16, False))
+    for model, n_kv, G, D, dtype, full in layouts:
         esize = torch.empty((), dtype=dtype).element_size()
         kp = torch.randint(-127, 128, (n_kv, N_PAGES, PAGE, D), generator=g, device=dev,
                            dtype=torch.int8)
@@ -620,7 +681,11 @@ def phase_kernels(dev, rates, timer) -> dict:
                   variant=variant, reps=reps, library="SDPA on dequantised K/V")
 
         maxp = 10
-        tables = decode_case((37, 300, 1000, 1), maxp, "table")
+        tables = decode_case((37, 300, 1000, 1), maxp, "table" if full else f"table D={D}")
+        if not full:
+            window_case(f"table D={D}", dtype, tables, (0, 128, 512, 0), (64, 40, 33, 1), 64)
+            del kp, vp, ks, vs
+            continue
         decode_case(SCHED_DECODE_LENS, SCHED_CONTEXT // PAGE, "scheduler 8 lanes")
         decode_case(LONG_DECODE_LENS, -(-LONG_DECODE_LENS[0] // PAGE), "long context")
 
@@ -841,6 +906,20 @@ def phase_reference(dev) -> None:
     emit({"phase": "reference_policy", "spec": TINY128.name, "p_hat_tol": 1e-4, "rows": rows})
 
 
+def _require_native(sched, what: str) -> None:
+    """The card's schedulers run on the C++ lane table: the card's machine
+    has a compiler, so a missing library is a fault, not a fallback."""
+    if sched._nlanes is None:
+        fail(f"{what}: the native lane table is not bound ({native_bridge.build_error()})")
+
+
+def _python_scan():
+    """A context in which new schedulers use the Python lane scan."""
+    from unittest import mock
+
+    return mock.patch.object(native_bridge, "make_lanes", lambda *a, **k: None)
+
+
 def _drain(sched, reqs, what: str) -> None:
     """run_until_idle, then fail on any request error or unfinished request."""
     sched.run_until_idle()
@@ -858,6 +937,7 @@ def _sched_reference_run(engine, tight, after_plain=lambda: None) -> dict:
     vocab = engine.spec.vocab_size
     prompts = [[int(t) for t in rng.integers(1, vocab, n)] for n in (37, 150, 300)]
     sched = ContinuousBatchingScheduler(engine, max_batch=4, max_context=512, scan_steps=4)
+    out_lanes = ["native" if sched._nlanes is not None else "python"]
     plain = [sched.submit(p, max_new=16) for p in prompts]
     _drain(sched, plain, "reference_sched plain")
     after_plain()
@@ -870,7 +950,9 @@ def _sched_reference_run(engine, tight, after_plain=lambda: None) -> dict:
     _drain(sched, drafted, "reference_sched drafted")
     out = {"plain": own, "drafted": [r.out_tokens for r in drafted], "prompts": prompts,
            "n_accepted": [r.n_accepted for r in drafted],
-           "n_reused": [r.n_reused for r in drafted]}
+           "n_reused": [r.n_reused for r in drafted],
+           "dispatch": {k: v["n"] for k, v in sched.stats()["dispatch"].items()},
+           "lanes": out_lanes}
     # two lanes admitted with two pages each into a 4-page pool; the first
     # outgrows its grant (position 247 of 260) and the newer lane yields
     long_prompts = [[int(t) for t in rng.integers(1, vocab, n)] for n in (120, 100)]
@@ -878,6 +960,7 @@ def _sched_reference_run(engine, tight, after_plain=lambda: None) -> dict:
         eng = engine if mode == "none" else tight
         sched = ContinuousBatchingScheduler(eng, max_batch=2, max_context=512, scan_steps=4,
                                             preemption_mode="swap" if mode == "none" else mode)
+        out_lanes.append("native" if sched._nlanes is not None else "python")
         reqs = [sched.submit(p, max_new=140) for p in long_prompts]
         _drain(sched, reqs, f"reference_sched {mode}")
         st = sched.stats()
@@ -1003,7 +1086,10 @@ def phase_reference_sched(dev) -> None:
         runs, forced, recorded = {}, {}, {}
         for where, prm, device in (("cpu", params, "cpu"), ("card", on_card, dev)):
             roomy = TierEngine(TINY128, prm, device=device, n_pages=32, **kw)
-            with _W8A8Recorder() as rec:   # the plain round's W8A8 calls
+            # the CPU's schedulers scan their lanes in Python, the card's in
+            # the C++ lane table: every count below holds the two to each other
+            lanes = _python_scan() if where == "cpu" else contextlib.nullcontext()
+            with _W8A8Recorder() as rec, lanes:   # the plain round's W8A8 calls
                 runs[where] = _sched_reference_run(
                     roomy, TierEngine(TINY128, prm, device=device, n_pages=4, **kw),
                     after_plain=rec.stop)
@@ -1011,6 +1097,9 @@ def phase_reference_sched(dev) -> None:
             # the CPU's tokens, scored by each device
             forced[where] = _teacher_forced(roomy, runs["cpu"]["prompts"], runs["cpu"]["plain"])
         cpu, card = runs["cpu"], runs["card"]
+        if set(cpu["lanes"]) != {"python"} or set(card["lanes"]) != {"native"}:
+            fail(f"reference_sched: lane tables cpu {cpu['lanes']}, card {card['lanes']} "
+                 f"({native_bridge.build_error()})")
         forced_err = float(np.abs(forced["cpu"][1] - forced["card"][1]).max())
         # f32 sums in another order: 1e-3 as the CPU tests hold the engines to
         # JAX; W8A8 adds flipped activation bytes (above): twice the 0.039
@@ -1023,6 +1112,8 @@ def phase_reference_sched(dev) -> None:
         first32 = [a[:32] == b[:32] for a, b in zip(cpu["long_none"], card["long_none"])]
         row = {"phase": "reference_sched", "spec": TINY128.name, "act_quant": act_quant,
                "tokens_match": {k: cpu[k] == card[k] for k in ("plain", "drafted")},
+               "lanes": {"cpu": "python scan", "card": "native table"},
+               "dispatch_match": cpu["dispatch"] == card["dispatch"],
                "n_accepted": card["n_accepted"], "n_reused": card["n_reused"],
                "counts[preemptions, swap, swap_out, swap_in, per request]": {
                    m: card[f"counts_{m}"] for m in ("none", "swap", "recompute")},
@@ -1045,7 +1136,7 @@ def phase_reference_sched(dev) -> None:
                      f"another reason than a re-rounded activation: {d}")
         exact = ("plain", "drafted") if not act_quant else ()
         for k in (*exact, "n_accepted", "n_reused", "counts_none", "counts_swap",
-                  "counts_recompute"):
+                  "counts_recompute", "dispatch"):
             if cpu[k] != card[k]:
                 fail(f"reference_sched act_quant={act_quant}: {k} on the card differs from the "
                      f"CPU's: {card[k]} != {cpu[k]}")
@@ -1933,11 +2024,14 @@ def _scan_profile(engine) -> dict:
 
 
 def _sched_waves(engine, prompts, mode: str, drafts=None) -> tuple:
-    """Twelve requests through a scheduler thread over ``engine`` in two
-    waves: eight, then four once the first have decoded a few scans, so that
-    admission joins a running batch. Returns (requests, stats, seconds)."""
-    sched = ContinuousBatchingScheduler(engine, max_batch=SCHED_LANES, max_context=SCHED_CONTEXT,
-                                        scan_steps=SCHED_SCAN, preemption_mode=mode)
+    """Twelve requests through a scheduler thread over ``engine`` on the C++
+    lane table in two waves: eight, then four once the first have decoded a
+    few scans, so that admission joins a running batch. Returns (requests,
+    stats, seconds)."""
+    sched = ContinuousBatchingScheduler(engine, max_batch=SCHED_LANES,
+                                        max_context=SCHED_CONTEXT, scan_steps=SCHED_SCAN,
+                                        preemption_mode=mode)
+    _require_native(sched, f"scheduler {mode}")
     drafts = drafts or [None] * len(prompts)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2006,6 +2100,7 @@ def phase_scheduler(dev, tier0) -> tuple:
     tight = TierEngine(spec, tier0.params, n_pages=first_wave + 1, **kw)
     sched = ContinuousBatchingScheduler(engine, max_batch=SCHED_LANES,
                                         max_context=SCHED_CONTEXT, scan_steps=SCHED_SCAN)
+    _require_native(sched, "scheduler warmup")
     report, secs = _call(sched.warmup, max_prompt=512, drafts=False)
     emit({"phase": "scheduler_warmup", "seconds": secs, **report,
           "buckets": sorted(" ".join(map(str, k)) for k in sched._warm_buckets)})
@@ -2015,6 +2110,7 @@ def phase_scheduler(dev, tier0) -> tuple:
     launches = read_counters()
     rows = [_sched_row("unpressured", base, stats, secs)]
     want = [r.out_tokens for r in base]
+    rows[0]["tokens_crc32"] = zlib.crc32(json.dumps(want).encode())
     # A swap restore is bit-exact, a recompute re-prefills the victim over the
     # same INT8 pages, and the W8A8 lanes do not depend on their batch-mates
     # (integer sums): a preempted run must equal the unpressured run, in the
@@ -2026,6 +2122,7 @@ def phase_scheduler(dev, tier0) -> tuple:
         if stats["preemptions"] < 1 or (mode == "swap" and stats["swap_preemptions"] < 1):
             fail(f"scheduler {mode}: a pool of {tight.allocator.n_pages} pages preempted nothing")
         rows[-1]["equal_to_unpressured"] = [r.out_tokens == w for r, w in zip(reqs, want)]
+        rows[-1]["tokens_crc32"] = zlib.crc32(json.dumps([r.out_tokens for r in reqs]).encode())
         rows[-1]["first_difference_at"] = [
             next((i for i, (a, b) in enumerate(zip(r.out_tokens, w)) if a != b), None)
             for r, w in zip(reqs, want)]
@@ -2162,7 +2259,7 @@ def _window_path_shapes(dev, g) -> None:
         for o in offs:
             cached_hist[o // page] = cached_hist.get(o // page, 0) + 1
     emit({"phase": "path_shapes", "kernel": "paged_window", "forwards": len(calls),
-          "shapes": len(distinct), "W_hist": {str(k): v for k, v in sorted(w_hist.items())},
+          "shapes": len(distinct), "D": sorted({r[4] for r in distinct}), "W_hist": {str(k): v for k, v in sorted(w_hist.items())},
           "cached_pages_hist": {str(k): v for k, v in sorted(cached_hist.items())}})
     worst = {}
     for B, W, G, n_kv, D, page, maxp, dt, offs, wins in distinct:
@@ -2245,10 +2342,243 @@ def phase_path_shapes(dev) -> None:
             del q, x, out, ref, diff
         torch.cuda.empty_cache()
         emit({"phase": "path_shapes", "kernel": kernel, "shapes": len(shapes),
-              "M": sorted({sh[0] for sh in shapes}), "max_abs_err": worst, "tol": {
+              "M": sorted({sh[0] for sh in shapes}), "K": sorted({sh[1] for sh in shapes}),
+              "max_abs_err": worst, "tol": {
                   str(k): v for k, v in MM_TOL.items()}})
         if not shapes:
             fail(f"{kernel}: the paths launched it at no shape")
+
+
+def _rss_bytes() -> int:
+    """The process's resident set now (VmRSS)."""
+    with open("/proc/self/status") as f:
+        for ln in f:
+            if ln.startswith("VmRSS:"):
+                return int(ln.split()[1]) * 1024
+    return -1
+
+
+def _hf_tensors(params, spec) -> dict:
+    """An unfused float params tree as the HF Qwen2 checkpoint's tensors,
+    [out, in] as HF stores them, in the params' type."""
+    t = {"model.embed_tokens.weight": params["embed"], "model.norm.weight": params["final_norm"]}
+    if not spec.tie_embeddings:
+        t["lm_head.weight"] = params["lm_head"].t().contiguous()
+    hf = {ours: name for name, (ours, _) in loader._LAYER_MAP.items()}  # the loader's names
+    for li, layer in enumerate(params["layers"]):
+        for ours, name in hf.items():
+            v = layer[ours]
+            t[f"model.layers.{li}.{name}"] = v.t().contiguous() if v.ndim == 2 else v
+    return t
+
+
+def _write_hf_checkpoint(params, spec, d: pathlib.Path) -> int:
+    """The checkpoint as Qwen2.5 ships one: config.json without head_dim and
+    the tensors in two shards (the embedding and the first layer, then the
+    rest). Returns the bytes written."""
+    tensors = _hf_tensors(params, spec)
+    first = {k: v for k, v in tensors.items()
+             if k == "model.embed_tokens.weight" or k.startswith("model.layers.0.")}
+    rest = {k: v for k, v in tensors.items() if k not in first}
+    for i, part in enumerate((first, rest)):
+        loader.save_safetensors(part, d / f"model-{i + 1:05d}-of-00002.safetensors",
+                                metadata={"format": "pt"})
+    (d / "config.json").write_text(json.dumps({
+        "architectures": ["Qwen2ForCausalLM"], "hidden_size": spec.hidden,
+        "intermediate_size": spec.ffn, "num_attention_heads": spec.n_heads,
+        "num_hidden_layers": spec.n_layers, "num_key_value_heads": spec.n_kv_heads,
+        "vocab_size": spec.vocab_size, "rope_theta": spec.rope_theta,
+        "rms_norm_eps": spec.rms_eps, "max_position_embeddings": spec.max_seq_len,
+        "tie_word_embeddings": spec.tie_embeddings, "torch_dtype": "bfloat16",
+        # Qwen2.5's configs leave head_dim to hidden / heads
+        **({} if spec.head_dim * spec.n_heads == spec.hidden else {"head_dim": spec.head_dim})}))
+    return sum(f.stat().st_size for f in d.glob("*.safetensors"))
+
+
+def _quantized_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _quantized_leaves(tree[k], f"{path}.{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _quantized_leaves(v, f"{path}.{i}")
+    else:
+        yield path, tree
+
+
+def phase_checkpoint(dev, base_spec=None) -> dict:
+    """The checkpoint path at Qwen2.5-7B widths (depth cut to CKPT_LAYERS):
+    a BF16 HF checkpoint written, its spec inferred and verified, loaded at
+    8 and 4 bits on the card and held bit for bit against ``quantize_model``
+    of the same weights upcast to f32; the loaded INT8 tier generates the
+    in-memory tier's greedy tokens and, like the grouped INT4 tier, accepts
+    its own output in full. Returns the launch counts of the run."""
+    base_spec = base_spec or get_spec(DEFAULT_CASCADE[0])
+    spec = scaled_spec(base_spec, layers=CKPT_LAYERS, name=f"{base_spec.name}-l{CKPT_LAYERS}")
+    g = torch.Generator(device=dev).manual_seed(400)
+    params = init_params(spec, g, torch.bfloat16, device=dev)
+    # norms and biases away from their initial ones and zeros, so every leaf
+    # of the checkpoint carries information
+    for layer in params["layers"]:
+        for k in ("input_norm", "post_norm", "q_bias", "k_bias", "v_bias"):
+            noise = 0.1 * torch.randn(layer[k].shape, generator=g, device=dev)
+            layer[k] = (layer[k].float() + noise).to(torch.bfloat16)
+    line = {"phase": "checkpoint", "spec": spec.name, "layers": spec.n_layers,
+            "tensors": "bf16, two shards"}
+    with tempfile.TemporaryDirectory(prefix="asd_ckpt_") as tmp:
+        d = pathlib.Path(tmp)
+        t0 = time.perf_counter()
+        nbytes = _write_hf_checkpoint(params, spec, d)
+        write_s = time.perf_counter() - t0
+        got = loader.spec_from_checkpoint(str(d), name=spec.name)
+        widths = ("vocab_size", "hidden", "n_layers", "n_heads", "n_kv_heads", "head_dim",
+                  "ffn", "tie_embeddings", "rope_theta", "rms_eps")
+        wrong = {w: (getattr(got, w), getattr(spec, w)) for w in widths
+                 if getattr(got, w) != getattr(spec, w)}
+        report = loader.verify_checkpoint(str(d), got)
+        if wrong or not report["ok"]:
+            fail(f"checkpoint: inferred spec differs {wrong} or verification failed {report}")
+        f32 = {k: v.float() for k, v in params.items() if k != "layers"}
+        f32["layers"] = [{k: v.float() for k, v in layer.items()} for layer in params["layers"]]
+        fused = fuse_projections(f32)
+        del f32
+        loaded, rows = {}, []
+        for bits in (8, 4):
+            gc.collect()
+            torch.cuda.synchronize()
+            rss0, peak0 = _rss_bytes(), resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+            t0 = time.perf_counter()
+            lp = loader.load_params(str(d), got, bits=bits, dtype=torch.bfloat16, device=dev)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            want = quantize_model(fused, bits=bits)
+            mism = []
+            lq, wq = dict(_quantized_leaves(lp)), dict(_quantized_leaves(want))
+            if lq.keys() != wq.keys():
+                fail(f"checkpoint bits={bits}: leaves {sorted(lq)} != {sorted(wq)}")
+            for k, v in lq.items():
+                w = wq[k]
+                if hasattr(v, "q"):
+                    same = (v.bits == w.bits and torch.equal(v.q, w.q)
+                            and torch.equal(v.scale, w.scale))
+                else:  # embedding, norms, fused biases: the bf16 values
+                    same = torch.equal(v, w.to(v.dtype))
+                if not same:
+                    mism.append(k)
+            rows.append({"bits": bits, "load_s": load_s, "bytes_read": nbytes,
+                         "read_gb_per_s": nbytes / load_s / 1e9,
+                         "rss_before_bytes": rss0,
+                         "peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+                         * 1024, "peak_rss_before_bytes": peak0 * 1024,
+                         "leaves": len(lq), "mismatched": mism})
+            if mism:
+                fail(f"checkpoint bits={bits}: loaded leaves differ from quantize_model: "
+                     f"{mism[:6]}")
+            loaded[bits] = (lp, want if bits == 8 else None)
+            del want
+        del fused
+    rng = np.random.default_rng(40)
+    prompts = [[int(t) for t in rng.integers(1, spec.vocab_size, n)] for n in CKPT_PROMPT_LENS]
+    kw = dict(page_size=PAGE, n_pages=64, device=dev, enable_prefix_cache=True)
+    zero_counters()
+    eng8 = TierEngine(got, loaded[8][0], **kw)
+    # the in-memory tier: quantize_model's matrices, the bf16 float leaves
+    mem = dict(loaded[8][1], embed=params["embed"], final_norm=params["final_norm"])
+    mem["layers"] = [dict(w, input_norm=la["input_norm"], post_norm=la["post_norm"],
+                          qkv_bias=torch.cat([la["q_bias"], la["k_bias"], la["v_bias"]]))
+                     for w, la in zip(mem["layers"], params["layers"])]
+    mem8 = TierEngine(spec, mem, **kw)
+    own = [o.token_ids.tolist() for o in eng8.generate(prompts, max_new=MAX_NEW)]
+    in_memory = [o.token_ids.tolist() for o in mem8.generate(prompts, max_new=MAX_NEW)]
+    sv8 = _self_verify(eng8, prompts, f"{got.name} int8 from the checkpoint")
+    sv4 = _self_verify(TierEngine(got, loaded[4][0], **kw), prompts,
+                       f"{got.name} int4 grouped from the checkpoint")
+    launches = read_counters()
+    emit({**line, "bytes": nbytes, "write_s": write_s, "loads": rows,
+          "tokens_equal_in_memory": own == in_memory, "self_verify": [sv8, sv4],
+          "launches": launches, "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    if own != in_memory:
+        fail("checkpoint: the loaded tier's greedy tokens differ from the in-memory tier's")
+    for sv in (sv8, sv4):
+        if sv["n_acc"] != [MAX_NEW] * len(prompts) or not sv["tokens_unchanged"]:
+            fail(f"checkpoint: {sv['label']} did not accept its own output: {sv['n_acc']}")
+    if loaded[4][0]["layers"][0]["qkv_proj"].scale.ndim != 2:
+        fail("checkpoint: the 4-bit load is not grouped INT4")
+    _require_launches("checkpoint", launches,
+                      ("int8_matmul", "int4_matmul_grouped", "paged_decode", "paged_window"))
+    del eng8, mem8, mem, loaded, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_rehearsal(dev) -> dict:
+    """scripts/torch_real_smoke.py's trained rehearsal on the card, after the
+    card-against-CPU check of the first tier's loss curve; one request is
+    traced. Returns the launch counts of the rehearsal's run."""
+    smoke = _load_rehearsal_script()
+    items = [it for name in ("factual-qa", "gsm-style") for it in load_frozen(name)]
+    tokz = tiny_train.CharTokenizer()
+    toks, mask = tiny_train.encode_qa(tokz, tiny_train.qa_corpus(items), smoke.REHEARSAL_SEQ_LEN)
+    rec = tiny_train.TierRecipe(**smoke.REHEARSAL_RECIPES[0])
+    spec = rec.spec(tokz.vocab_size, max_seq_len=512)
+    init = init_params(spec, 0, torch.float32, device="cpu")
+    curves = {}
+    for where, device in (("cpu", "cpu"), ("card", dev)):
+        _, rep = tiny_train.train_lm(spec, toks, mask, steps=REHEARSAL_CHECK_STEPS, batch=16,
+                                     lr=rec.lr, seed=0, device=device, init=init)
+        curves[where] = rep
+    diff = float(np.max(np.abs(np.subtract(curves["card"]["step_losses"],
+                                           curves["cpu"]["step_losses"]))))
+    emit({"phase": "rehearsal", "step": "train_card_vs_cpu", "tier": rec.name,
+          "steps": REHEARSAL_CHECK_STEPS, "losses_card": curves["card"]["step_losses"],
+          "losses_cpu": curves["cpu"]["step_losses"], "max_abs_diff": diff, "tol": TRAIN_TOL,
+          "card_s": curves["card"]["train_wall_s"], "cpu_s": curves["cpu"]["train_wall_s"]})
+    if not diff <= TRAIN_TOL:
+        fail(f"rehearsal: the card's loss curve differs from the CPU's by {diff}")
+
+    traced = {}
+
+    def trace_one(pipeline):
+        item = load_frozen("factual-qa")[1]
+        with TorchProfilerTrace(tempfile.mkdtemp(prefix="asd_trace_")) as tr:
+            res = pipeline.process_request(RequestContext(
+                prompt=item["prompt"], request_id="smoke_traced", max_tokens=64))
+            torch.cuda.synchronize()
+        size = os.path.getsize(tr.path)
+        cuda_us = sum(getattr(e, "device_time_total", 0.0) for e in tr.events)
+        traced.update(path=tr.path, bytes=size, stage=res.final_stage,
+                      device_time_us=float(cuda_us))
+        os.remove(tr.path)
+        os.rmdir(os.path.dirname(tr.path))
+
+    with tempfile.TemporaryDirectory(prefix="asd_rehearsal_") as tmp:
+        args = smoke.parse_args(["--rehearse", "--device", str(dev), "--out",
+                                 f"{tmp}/torch_real_smoke.json"])
+        zero_counters()
+        t0 = time.perf_counter()
+        report = smoke.run(args, progress=lambda m: None, after=trace_one)
+        secs = time.perf_counter() - t0
+        launches = read_counters()
+    emit({"phase": "rehearsal", "step": "run", "seconds": secs, "device": report["device"],
+          "tiers": [{"steps": r["steps"], "final_loss_nats": r["final_loss_nats"],
+                     "loss_curve": r["loss_curve"], "train_s": r["train_wall_s"]}
+                    for r in report["train_reports"]],
+          "measured_cost_ratios": report["measured_cost_ratios"],
+          "datasets": report["datasets"], "assertions": report["assertions"],
+          "traced_request": traced, "launches": launches,
+          "comparison": "REHEARSAL_r05.json (JAX on the CPU): cascade 0.4136, fixed-largest "
+                        "0.3457, preservation 1.1964, top-tier share 0.3086; other initial "
+                        "weights, so only the assertions must hold"})
+    if not report["assertions"]["passed"]:
+        fail(f"rehearsal: {report['assertions']['failures']}")
+    if not traced or traced["bytes"] <= 0:
+        fail(f"rehearsal: the traced request left no trace: {traced}")
+    _require_launches("rehearsal", launches,
+                      ("int8_matmul", "int4_matmul_grouped", "paged_decode", "paged_window"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> int:
@@ -2265,33 +2595,48 @@ def main() -> int:
           "cuda": torch.version.cuda, "mem_bytes_per_s": rates[0],
           "ops": {str(k): v for k, v in rates[1].items()}})
 
-    phase_build()
-    kernel_rows = phase_kernels(dev, rates, Timer(dev))
-    phase_reference(dev)
-    phase_reference_sched(dev)
+    walls = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = walls.get(name, 0.0) + time.perf_counter() - t0
+        emit({"phase_seconds": name, "seconds": walls[name]})
+        return out
+
+    timed("build", phase_build)
+    kernel_rows = timed("kernels", phase_kernels, dev, rates, Timer(dev))
+    timed("reference", phase_reference, dev)
+    timed("reference_sched", phase_reference_sched, dev)
+    paths = {}
+    # every path's distinct matmul shapes and window calls, from here to the
+    # last path: phase_path_shapes holds the kernels to their plain versions there
     for k in (*_MATMULS, "paged_window"):
         _KERNELS[k]["counter"].shapes = set()
-    paths = {}
-    paths["serve"], engines = phase_serve(dev)
-    phase_step(engines)
+    paths["checkpoint"] = timed("checkpoint", phase_checkpoint, dev)
+    paths["serve"], engines = timed("serve", phase_serve, dev)
+    timed("step", phase_step, engines)
     tier0 = engines[0]
     del engines  # frees the 14B INT8 tier before the next engines are built
     gc.collect()
     torch.cuda.empty_cache()
-    paths["scheduler"], tier0_w8a8 = phase_scheduler(dev, tier0)
-    paths["per_channel"] = phase_per_channel(dev)
+    paths["scheduler"], tier0_w8a8 = timed("scheduler", phase_scheduler, dev, tier0)
+    paths["per_channel"] = timed("per_channel", phase_per_channel, dev)
     gc.collect()
     torch.cuda.empty_cache()
-    paths["pipeline"], int4_engines = phase_pipeline(dev, tier0)
-    paths["scheduled_pipeline"] = phase_scheduled_pipeline(dev, tier0_w8a8, int4_engines)
-    paths["routing"] = phase_routing(dev, tier0, int4_engines)
-    phase_step([*int4_engines, tier0_w8a8])
+    paths["pipeline"], int4_engines = timed("pipeline", phase_pipeline, dev, tier0)
+    paths["scheduled_pipeline"] = timed("scheduled_pipeline", phase_scheduled_pipeline, dev,
+                                        tier0_w8a8, int4_engines)
+    paths["routing"] = timed("routing", phase_routing, dev, tier0, int4_engines)
+    timed("step", phase_step, [*int4_engines, tier0_w8a8])
     # the INT4 tiers once more with f32 activations, on the same weights
-    phase_step([_twin(e, torch.float32) for e in int4_engines])
+    timed("step", phase_step, [_twin(e, torch.float32) for e in int4_engines])
     del tier0, tier0_w8a8, int4_engines
     gc.collect()
     torch.cuda.empty_cache()
-    phase_path_shapes(dev)
+    paths["rehearsal"] = timed("rehearsal", phase_rehearsal, dev)
+    timed("path_shapes", phase_path_shapes, dev)
+    emit({"phase": "wall", "seconds_by_phase": walls, "seconds": sum(walls.values())})
 
     summary = []
     for k, info in _KERNELS.items():

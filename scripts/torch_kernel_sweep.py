@@ -4,16 +4,17 @@ NVIDIA GPU: at their table shapes, and at each value of five choices.
 
     python3 scripts/torch_kernel_sweep.py [--root DIR] [--tag NAME] [--pps 1 2 4]
         [--window-rows 16 32 64] [--int8-blocks 2,16 4,16] [--int8-stages 3 4]
-        [--int8-warps 8,4 4,4]
+        [--int8-warps 8,4 4,4] [--outputs FILE]
 
 Table: the INT8 kernel at ``chip_smoke.py``'s ten decode shapes (Qwen2.5-7B
 projections with bf16 x, 14B with f32 x) at M = 1 and 4, and the paged decode
-kernel at its rows (7B heads in bf16, 14B in f32: lengths 37/300/1000/1, the
+kernel at its rows (7B heads in bf16, 14B in f32, and Qwen2.5-0.5B's heads,
+of head dim 64, in bf16: lengths 37/300/1000/1, the
 scheduler's 8 lanes, one lane of 4100 tokens, one lane of 545 tokens) and the
 window kernel at three shapes: its table shape (both models), the pipeline's
 verify over a cached prefix (14B heads, f32 and bf16: 148 positions after 384
 cached tokens, bucketed to 192) and a 512-token prefill through the window
-path (7B heads in bf16, 14B heads in f32); each attention row is held against
+path (7B and 0.5B heads in bf16, 14B heads in f32); each attention row is held against
 its plain version (the window's valid rows only). ``chip_smoke.py`` gives the
 same rows' bounds, plain times and library yardstick. The summary adds up one
 decode step's INT8 and paged decode time per model (``decode_step_us``): at
@@ -43,7 +44,10 @@ constant's line changed, in ``adaptive_sd_tpu_torch/build/variant-<value>/``
 library while it is timed; the sources themselves are not touched.
 
 Each version or value is held against the plain version before it is timed;
-values run in turns (the list, then reversed). The timer is chip_smoke.py's:
+values run in turns (the list, then reversed). ``--outputs FILE`` saves the
+paged kernels' outputs of the version under ``--root`` (the valid rows) to
+FILE, or, where FILE exists, compares them with it bit for bit and prints a
+line of the rows that are equal: two versions' bits on the same inputs. The timer is chip_smoke.py's:
 CUDA events around one call after a 256 MB write (cold L2) and a ~1 ms spin
 of the card, mean of 20 calls. One JSON line per timing, then one summary line
 of microseconds by row. The summary also gives ``host_us``: the host's
@@ -71,6 +75,10 @@ PAGE, N_PAGES = 128, 512
 # (model, x type, q heads per kv head, kv heads, hidden, ffn, vocab, layers)
 MODELS = (("qwen2.5-7b", torch.bfloat16, 7, 4, 3584, 18944, 152064, 28),
           ("qwen2.5-14b", torch.float32, 5, 8, 5120, 13824, 152064, 48))
+# the paged kernels' head layouts besides MODELS' (head dim 128): (model, x
+# type, q heads per kv head, kv heads, head dim)
+ATTN_MODELS = (*((m, dt, G, n_kv, 128) for m, dt, G, n_kv, *_ in MODELS),
+               ("qwen2.5-0.5b", torch.bfloat16, 7, 2, 64))
 DECODE_ROWS = (("table", (37, 300, 1000, 1)), ("scheduler 8 lanes",
                (40, 128, 129, 250, 380, 500, 640, 660)), ("long context", (4100, 37, 300, 1)),
                ("one lane", (545,)))
@@ -118,8 +126,7 @@ def attn_rows(dev, g):
     """(label, decode?, args, kwargs, valid rows or None)"""
     out = []
 
-    def window(label, pages, n_kv, G, dtype, table, offs, wins, W):
-        D = 128
+    def window(label, pages, n_kv, G, D, dtype, table, offs, wins, W):
         offsets = torch.tensor(offs, dtype=torch.int32, device=dev)
         ctx = offsets + torch.tensor(wins, dtype=torch.int32, device=dev)
         qw = torch.randn(len(offs), n_kv, W * G, D, generator=g, device=dev).to(dtype)
@@ -130,8 +137,7 @@ def attn_rows(dev, g):
         out.append((label, False, (qw, *pages, table, ctx, offsets),
                     dict(group=G, sm_scale=D ** -0.5), valid))
 
-    for model, dtype, G, n_kv, *_ in MODELS:
-        D = 128
+    for model, dtype, G, n_kv, D in ATTN_MODELS:
         pages = (torch.randint(-127, 128, (n_kv, N_PAGES, PAGE, D), generator=g, device=dev,
                                dtype=torch.int8),
                  torch.rand(n_kv, N_PAGES, 1, PAGE, generator=g, device=dev) * 0.02 + 1e-3,
@@ -150,19 +156,19 @@ def attn_rows(dev, g):
             lens_t = torch.tensor(lens, dtype=torch.int32, device=dev)
             out.append((f"decode {model} {label}", True, (q, *pages, tables, lens_t),
                         dict(sm_scale=D ** -0.5), None))
-        window(f"window {model} table", pages, n_kv, G, dtype, table, (0, 128, 512, 0),
+        window(f"window {model} table", pages, n_kv, G, D, dtype, table, (0, 128, 512, 0),
                (64, 40, 33, 1), 64)
         one = table[:1, :6].contiguous()  # one sequence, 6 pages
         if model == "qwen2.5-14b":
             for dt in (torch.float32, torch.bfloat16):
-                window(f"window {model} verify {str(dt)[6:]}", pages, n_kv, G, dt, one, (384,),
-                       (148,), 192)
-        window(f"window {model} prefill {str(dtype)[6:]}", pages, n_kv, G, dtype, one, (0,),
-               (512,), 512)
+                window(f"window {model} verify {str(dt)[6:]}", pages, n_kv, G, D, dt, one,
+                       (384,), (148,), 192)
+        window(f"window {model} prefill {str(dtype)[6:]}", pages, n_kv, G, D, dtype, one,
+               (0,), (512,), 512)
     return out
 
 
-def time_all(MQ, A, timer, int8, attn, tag, us):
+def time_all(MQ, A, timer, int8, attn, tag, us, outs=None):
     for label, x, q, scale in int8:
         torch.testing.assert_close(MQ.int8_matmul_cuda(x, q, scale).float(),
                                    MQ.quantized_matmul_ref(x, q, scale).float(), **TOL[x.dtype])
@@ -176,6 +182,8 @@ def time_all(MQ, A, timer, int8, attn, tag, us):
         if valid is not None:  # window rows past ctx_len are padding, never read
             got, ref = got[valid], ref[valid]
         torch.testing.assert_close(got.float(), ref.float(), **ATTN_TOL[a[0].dtype])
+        if outs is not None:
+            outs[label] = got.cpu()
         t = timer(lambda: fn(*a, **kw))
         us.setdefault(tag, {}).setdefault(label, []).append(t)
         print(json.dumps({"version": tag, "row": label, "us": t}), flush=True)
@@ -278,6 +286,7 @@ def main() -> int:
     ap.add_argument("--int8-blocks", nargs="*", default=[])
     ap.add_argument("--int8-stages", type=int, nargs="*", default=[])
     ap.add_argument("--int8-warps", nargs="*", default=[])
+    ap.add_argument("--outputs", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -292,7 +301,15 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(0)
     int8, attn = int8_rows(dev, g), attn_rows(dev, g)
     timer, us = Timer(dev), {}
-    time_all(MQ, A, timer, int8, attn, args.tag or args.root, us)
+    outs = {}
+    time_all(MQ, A, timer, int8, attn, args.tag or args.root, us, outs)
+    if args.outputs and Path(args.outputs).exists():
+        saved = torch.load(args.outputs)
+        print(json.dumps({"version": args.tag or args.root, "outputs_of": args.outputs,
+                          "bits_equal": {k: bool(torch.equal(v, saved[k]))
+                                         for k, v in outs.items() if k in saved}}), flush=True)
+    elif args.outputs:
+        torch.save(outs, args.outputs)
     host = {args.tag or args.root: host_rows(MQ, A, Q, int8, attn, dev, g)}
     for n in [*args.int8_blocks, *reversed(args.int8_blocks)]:
         saved, MQ._INT8_BLOCKS_PER_SM = MQ._INT8_BLOCKS_PER_SM, tuple(map(int, n.split(",")))

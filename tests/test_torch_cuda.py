@@ -148,6 +148,55 @@ def test_paged_decode_kernel_matches_plain(cuda, G, page):
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("D", [40, 48, 64, 96])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,page", [(7, 128), (2, 16)])
+def test_paged_decode_kernel_any_head_dim(cuda, D, dtype, G, page):
+    """Head dims besides 128 (the rehearsal tiers' 48, 40 and 64, and 96):
+    the kernel pads D to the MMA's k-step with zeros (40 is no multiple of
+    16) and stores the D real columns."""
+    g = torch.Generator(device=cuda).manual_seed(G + D)
+    B, n_kv, n_pages = 3, 2, 12
+    kp, ks, vp, vs = _pages(g, n_kv, n_pages, page, D, cuda)
+    q = torch.randn(B, n_kv, G, D, generator=g, device=cuda).to(dtype)
+    tables = torch.tensor([[3, 1, 7, 5, 2, 0, 4, 6, 8], [9, 10, 11, 0, 1, 2, 3, 4, 5],
+                           [n_pages] * 9], dtype=torch.int32, device=cuda)
+    lens = torch.tensor([min(1000, 9 * page), min(300, 9 * page), 1], dtype=torch.int32,
+                        device=cuda)
+    out = A.paged_attention(q, kp, ks, vp, vs, tables, lens, sm_scale=D ** -0.5)
+    ref = A.paged_attention_ref(q, kp, ks, vp, vs, tables, lens, sm_scale=D ** -0.5)
+    torch.cuda.synchronize()
+    tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+@pytest.mark.parametrize("D", [40, 48, 64, 96])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,W", [(7, 33), (2, 150)])
+def test_paged_window_kernel_any_head_dim(cuda, D, dtype, G, W):
+    """The window kernel at head dims 40, 48, 64 and 96 against its plain version:
+    windows over cached prefixes, a lane with padding rows, a parked lane."""
+    g = torch.Generator(device=cuda).manual_seed(G + W + D)
+    B, n_kv, page, n_pages = 3, 2, 128, 12
+    kp, ks, vp, vs = _pages(g, n_kv, n_pages, page, D, cuda)
+    offsets = torch.tensor([256, 37, 0], dtype=torch.int32, device=cuda)
+    win = torch.tensor([W, W // 2, 1], dtype=torch.int32, device=cuda)
+    q = torch.randn(B, n_kv, W * G, D, generator=g, device=cuda).to(dtype)
+    tables = torch.tensor([[3, 1, 7, 5, 2], [9, 10, 11, 0, 4], [n_pages] * 5],
+                          dtype=torch.int32, device=cuda)
+    ctx = offsets + win
+    out = A.paged_window_attention(q, kp, ks, vp, vs, tables, ctx, offsets, group=G,
+                                   sm_scale=D ** -0.5)
+    ref = A.paged_window_attention_ref(q, kp, ks, vp, vs, tables, ctx, offsets, group=G,
+                                       sm_scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
+    for b in range(B):
+        r = int(win[b]) * G
+        torch.testing.assert_close(out[b, :, :r].float(), ref[b, :, :r].float(), **tol)
+
+
 # (G, W, dtype, n_kv, offsets, window lengths): verify-sized windows over
 # cached prefixes (a lane with padding rows, a parked lane); the pipeline's
 # verify over a cached prefix (Qwen2.5-14B heads, 148 positions bucketed to
@@ -615,8 +664,21 @@ def test_paged_decode_row_equals_window_row(cuda, G, dtype, W):
     sentinel page; the window holds the row among others (positions before
     and after it): in a window of 5, or in one of 70 spread over several row
     tiles, where the row's G query heads straddle two tiles (G = 5, 7)."""
-    g = torch.Generator(device=cuda).manual_seed(G + W)
-    n_kv, D, page, n_pages, maxp = 2, 128, 128, 80, 34
+    _decode_row_equals_window_row(cuda, G, dtype, W, 128)
+
+
+@pytest.mark.parametrize("D", [40, 48])
+@pytest.mark.parametrize("W", [5, 70])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_row_equals_window_row_any_head_dim(cuda, dtype, W, D):
+    """The same bits from both kernels at the zero-padded head dims 40 and 48
+    (G = 7: a row's heads straddle two row tiles in the window of 70)."""
+    _decode_row_equals_window_row(cuda, 7, dtype, W, D)
+
+
+def _decode_row_equals_window_row(cuda, G, dtype, W, D):
+    g = torch.Generator(device=cuda).manual_seed(G + W + (D != 128) * D)
+    n_kv, page, n_pages, maxp = 2, 128, 80, 34
     kp, ks, vp, vs = _pages(g, n_kv, n_pages, page, D, cuda)
     lens = [127, 128, 129, 1000, 4100, 1]
     B = len(lens)
@@ -655,3 +717,29 @@ def test_rms_norm_rows_do_not_depend_on_batch(cuda, dtype):
         full = rms_norm(x, w, 1e-6)
         for M in (1, 2, 4, 7, 8, 15, 16, 17, 64):
             assert torch.equal(rms_norm(x[:M], w, 1e-6), full[:M]), (H, M)
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+def test_load_params_on_card_equals_quantize_model(cuda, bits, tmp_path):
+    """A BF16 checkpoint written by the port, loaded on the card: every
+    QuantizedTensor equals ``quantize_model`` of the same weights upcast to
+    f32, on the card, bit for bit; the float leaves keep their bf16 values."""
+    from adaptive_sd_tpu_torch.models import init_params, loader
+    from adaptive_sd_tpu_torch.models.qwen import fuse_projections, quantize_model
+
+    params = init_params(TINY128, 5, torch.bfloat16, device=cuda)
+    f32 = {k: v.float() for k, v in params.items() if k != "layers"}
+    f32["layers"] = [{k: v.float() for k, v in la.items()} for la in params["layers"]]
+    loader.save_checkpoint(f32, TINY128, str(tmp_path))  # f32 tensors, then rewrite as bf16
+    tensors = loader.load_safetensors(tmp_path / "model.safetensors")
+    loader.save_safetensors({k: v.bfloat16() for k, v in tensors.items()},
+                            tmp_path / "model.safetensors")
+    got = loader.load_params(str(tmp_path), TINY128, bits=bits, device=cuda)
+    want = quantize_model(fuse_projections(f32), bits=bits)
+    for li, (g_, w_) in enumerate(zip(got["layers"], want["layers"])):
+        for k in ("qkv_proj", "gateup_proj", "o_proj", "down_proj"):
+            assert g_[k].q.is_cuda and torch.equal(g_[k].q, w_[k].q), (li, k)
+            assert torch.equal(g_[k].scale, w_[k].scale), (li, k)
+        assert torch.equal(g_["input_norm"], params["layers"][li]["input_norm"])
+    assert torch.equal(got["lm_head"].q, want["lm_head"].q)
+    assert torch.equal(got["embed"], params["embed"])

@@ -1,7 +1,9 @@
-"""Import and device guards of the PyTorch port: it and chip_smoke.py import
-neither jax nor adaptive_sd_tpu (and chip_smoke.py neither aiohttp nor
-pydantic), its entry points never fall back to the CPU on their own, and a
-tensor that is not on the CPU never reaches a kernel's plain version."""
+"""Import and device guards of the PyTorch port: it, chip_smoke.py and
+scripts/torch_real_smoke.py import neither jax nor adaptive_sd_tpu, nor a
+package the card's machine lacks (safetensors, optax, sklearn,
+transformers, yaml; and chip_smoke.py neither aiohttp nor pydantic), its
+entry points never fall back to the CPU on their own, and a tensor that is
+not on the CPU never reaches a kernel's plain version."""
 
 import os
 import subprocess
@@ -20,16 +22,24 @@ torch.set_num_threads(2)
 REPO = Path(__file__).resolve().parent.parent
 
 _IMPORT_ALL = r"""
-import importlib, pkgutil, sys
+import importlib, importlib.util, pkgutil, sys
 import adaptive_sd_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith("jax.") or m == "adaptive_sd_tpu"
-             or m.startswith("adaptive_sd_tpu."))
+spec = importlib.util.spec_from_file_location("torch_real_smoke", "scripts/torch_real_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+absent = ("jax", "adaptive_sd_tpu", "safetensors", "optax", "sklearn", "transformers", "yaml")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in absent)
 missing = sorted({"adaptive_sd_tpu_torch.engine.scheduler", "adaptive_sd_tpu_torch.cascade.scheduled",
+                  "adaptive_sd_tpu_torch.models.loader", "adaptive_sd_tpu_torch.models.tiny_train",
+                  "adaptive_sd_tpu_torch.engine.native_bridge", "adaptive_sd_tpu_torch.minimal",
+                  "adaptive_sd_tpu_torch.config.base", "adaptive_sd_tpu_torch.config.schemas",
+                  "adaptive_sd_tpu_torch.core.interfaces",
+                  "adaptive_sd_tpu_torch.utils.logging_utils",
+                  "adaptive_sd_tpu_torch.utils.profiler",
+                  "adaptive_sd_tpu_torch.utils.validation",
                   "adaptive_sd_tpu_torch.serve.__main__", "adaptive_sd_tpu_torch.predict.data",
                   "adaptive_sd_tpu_torch.cascade.cost_optimizer",
                   "adaptive_sd_tpu_torch.cascade.calibration", "adaptive_sd_tpu_torch.cascade.router",
@@ -56,7 +66,7 @@ def test_port_and_chip_smoke_import_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 56
+    assert int(n_modules) >= 66
     assert bad.strip() == "[]"
 
 
@@ -147,6 +157,39 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         TierEngine(TINY, params, page_size=16, n_pages=8)
     with pytest.raises(RuntimeError, match="CUDA"):
         init_params_quantized(TINY, 0)
+
+
+def test_checkpoint_and_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """``load_params``, ``load_params_npz``, ``init_params`` and ``train_lm``
+    run on the card unless the caller passes a CPU device; without one they
+    raise before any work."""
+    import numpy as np
+
+    from adaptive_sd_tpu_torch.models import init_params, loader, tiny_train
+
+    params = init_params(TINY, 0, torch.float32, device="cpu")
+    loader.save_checkpoint(params, TINY, str(tmp_path / "ck"))
+    loader.save_params_npz(params, str(tmp_path / "p.npz"))
+    _no_cuda(monkeypatch)
+    for call in (lambda: loader.load_params(str(tmp_path / "ck"), TINY),
+                 lambda: loader.load_params_npz(str(tmp_path / "p.npz")),
+                 lambda: init_params(TINY, 0),
+                 lambda: tiny_train.train_lm(TINY, np.ones((2, 8), np.int32),
+                                             np.ones((2, 8), np.float32), steps=1)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+
+
+def test_rehearsal_script_raises_without_cuda(tmp_path):
+    """scripts/torch_real_smoke.py runs on the card by default: with no card
+    it exits non-zero before training or loading anything."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run([sys.executable, str(REPO / "scripts" / "torch_real_smoke.py"),
+                          "--rehearse", "--out", str(tmp_path / "r.json")], cwd=tmp_path,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and "CUDA" in out.stderr
+    assert not (tmp_path / "r.json").exists()
 
 
 def test_engine_refuses_params_on_another_device():

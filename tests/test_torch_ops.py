@@ -165,6 +165,34 @@ class TestPagedAttention:
         np.testing.assert_allclose(out.numpy(), np.asarray(ker), rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(ref.numpy(), np.asarray(ker), rtol=1e-5, atol=1e-5)
 
+    @pytest.mark.parametrize("D", [40, 48])
+    def test_decode_ref_matches_pallas_kernel_at_head_dims_40_48(self, D):
+        """The rehearsal tiers' head dims: the Pallas kernel takes any D."""
+        rng = np.random.default_rng(D)
+        B, n_kv, G, page, n_pages, maxp = 2, 2, 3, 16, 6, 3
+        kq, ks, vq, vs = _paged_inputs(rng, n_kv, n_pages, page, D)
+        q = rng.normal(size=(B, n_kv, G, D)).astype(np.float32)
+        tables = np.array([[0, 3, 5], [4, 1, 2]], np.int32)
+        lens = np.array([37, 9], np.int32)
+        args = (q, kq, ks, vq, vs, tables, lens)
+        ker = jattn.paged_attention(*map(jnp.asarray, args), sm_scale=D ** -0.5, interpret=True)
+        out = tattn.paged_attention(*map(_t, args), sm_scale=D ** -0.5)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ker), rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("D,ok", [(40, True), (48, True), (64, True), (120, True),
+                                      (128, True), (36, False), (136, False), (0, False)])
+    def test_kernel_checks_take_head_dims_in_steps_of_8(self, D, ok):
+        """The kernels' wrapper checks take every head dim that is a multiple
+        of 8 up to 128 (the kernels zero-pad it to 16); on the CPU the check
+        then stops at the device."""
+        q = torch.zeros(1, 1, 2, D)
+        kp = torch.zeros(1, 2, 16, D, dtype=torch.int8)
+        sc = torch.zeros(1, 2, 1, 16)
+        i32 = torch.zeros(1, 1, dtype=torch.int32)
+        want = "CUDA tensors" if ok else "head_dim"
+        with pytest.raises(ValueError, match=want):
+            tattn._check_paged(q, kp, sc, kp, sc, i32, i32[0])
+
     @pytest.mark.parametrize("G", [2, 5])
     def test_window_ref_matches_pallas_kernel(self, G):
         rng = np.random.default_rng(40 + G)
