@@ -2,32 +2,41 @@
 (counterpart of ``adaptive_sd_tpu/engine/decode.py``).
 
 The JAX engine fuses prefill and a ``lax.while_loop`` decode into one jitted
-graph per shape bucket. Here the same steps run eagerly: a prefill (or a
-prefix-cached window prefill), then a Python loop over ``decode_step`` with
-the JAX loop's early exit and the same padding of ``out_toks``, ``out_lps``
-and ``gen_len``. Loop bookkeeping (write slots, budgets) lives on the host;
-tokens stay on the device and come back in one copy per call (one per step
-only when an ``eos_id`` must be checked). The shape bucketing of the JAX
-engine is kept, so both packages see the same padded shapes.
+graph per shape bucket. Here a prefill (or a prefix-cached window prefill)
+runs eagerly, then the decode loop runs on the device: its lane masks, write
+slots, budgets and output buffers are static tensors of a loop bucket
+(engine/graphs.py), advanced ``LOOP_CHUNK`` steps at a time, with one host
+read (is any lane still writing?) between chunks and one fetch at the end.
+On a CUDA device each bucket is a captured CUDA graph that every chunk
+replays (``cuda_graphs=False`` runs the same steps without capture); on the
+CPU the same steps run eagerly. A lane that is done feeds its last token at
+its last position again, which rewrites the same K/V, so no K/V lands past a
+lane's last position. The shape bucketing of the JAX engine is kept, so both
+packages see the same padded shapes; on a CUDA device the block table's
+width is also rounded up to a power of two (padding on the out-of-range
+page), which bounds the number of graphs.
 
 For the continuous-batching scheduler (engine/scheduler.py) the engine also
 has one-dispatch calls: a forward, the per-row sampling and one fetch
 (``prefill_sample_batch``, ``prefill_window_sample_batch``,
 ``decode_sample_batch``, ``verify_admit_sample_batch``), a multi-step decode
 scan whose masks live on the device so that nothing syncs with the host
-between its steps (``decode_sample_scan`` and the device-carry variants), and
-the KV page swap. Where the JAX engine takes a ``jax.random`` key these take
-an integer seed and make a ``torch.Generator`` on the engine's device.
+between its steps (``decode_sample_scan`` and the device-carry variants, a
+loop bucket too), and the KV page swap. Where the JAX engine takes a
+``jax.random`` key these take an integer seed and make a ``torch.Generator``
+on the engine's device.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from dataclasses import dataclass
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..core.device import resolve_device
 from ..core.exceptions import ResourceError
@@ -35,7 +44,6 @@ from ..models.config import ModelSpec
 from ..models.qwen import decode_step, logits_at, prefill, prefill_window
 from ..ops.quant import QuantizedTensor
 from ..ops.sampling import (
-    SampleResult,
     _categorical,
     adjusted_logits,
     row_adjusted_logits,
@@ -45,6 +53,7 @@ from ..ops.sampling import (
     speculative_accept,
 )
 from .allocator import PageAllocator
+from .graphs import LOOP_CHUNK, DeviceLoops
 from .kv_cache import PagedKVCache
 from .prefix_cache import PrefixCache
 
@@ -117,12 +126,17 @@ class TierEngine:
         device=None,
         act_quant: bool = False,
         prefix_spill_bytes: int = 0,
+        cuda_graphs: bool = True,
     ) -> None:
         """``act_quant``: INT8 weights take the W8A8 path (dynamic INT8
         activations, ``ops.matmul_q.quantized_matmul_w8a8``) in every forward
         of this engine. ``prefix_spill_bytes`` > 0: evicted prefix-cache
         pages spill to host memory and restore bit-exactly on a chain-intact
-        re-acquire instead of recomputing the prefill."""
+        re-acquire instead of recomputing the prefill. ``cuda_graphs``: on a
+        CUDA device, the decode loops (generate, verify-continue, the
+        scheduler's scan) replay captured CUDA graphs; False runs the same
+        device-side loops without capture (a comparison). No effect on the
+        CPU."""
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(
@@ -148,6 +162,7 @@ class TierEngine:
         )
         self.total_generated_tokens = 0
         self.total_decode_time_s = 0.0
+        self.loops = DeviceLoops(self.device, cuda_graphs=cuda_graphs)
 
     # helpers ------------------------------------------------------------------
     def _t(self, a: np.ndarray) -> torch.Tensor:
@@ -155,6 +170,20 @@ class TierEngine:
 
     def _generator(self, seed: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _width(self, max_pages: int) -> int:
+        """Block-table width of a generate or verify call: on a CUDA device
+        the next power of two (the columns past ``max_pages`` on the
+        out-of-range page), so that a few graphs serve every length."""
+        return _bucket_pow2(max_pages, 1) if self.device.type == "cuda" else max_pages
+
+    def _park(self, state: dict) -> None:
+        """Point a loop state's block table at the out-of-range page: K/V
+        writes are dropped (a graph's warm-up)."""
+        state["tables"].fill_(self.allocator.n_pages)
+
+    def _zeros(self, shape, dtype) -> torch.Tensor:
+        return torch.zeros(shape, dtype=dtype, device=self.device)
 
     def _acquire_prefixes(self, prompts):
         """Acquire prefix-cache chains for a batch, unwinding earlier
@@ -195,62 +224,121 @@ class TierEngine:
     def _decode_loop(self, first, q_cur, seq_lens, block_tables, gen, *, budget, max_new,
                      temperature, top_p, return_topk, decide=None):
         """Decode tail shared by generate paths (JAX ``_decode_loop``):
-        write sampled tokens until budget/eos. ``seq_lens`` [B] are the
-        context lengths when ``first`` was sampled. Returns host arrays
-        (out_toks [B, max_new], out_lps, gen_len [B], q_bufs). ``decide``
-        (out_lps [B, max_new], gen_len [B], both on the device) -> tensors
-        runs on the device before anything is fetched; its results come back
-        as a fifth item, fetched with the tokens."""
-        B = seq_lens.shape[0]
-        active = np.ones(B, bool)
-        gen_len = np.zeros(B, np.int32)
-        toks, lps, writes, q_rows = [], [], [], []
-        tok = first
-        for i in range(max_new):
-            writing = active & (i < budget)
-            toks.append(tok.token)
-            lps.append(tok.logprob)
-            writes.append(writing)
-            if return_topk:
-                q_rows.append(q_cur)
-            gen_len += writing
-            if self.eos_id is not None:
-                active &= tok.token.cpu().numpy() != self.eos_id
-            active &= i + 1 < budget
-            if not (active.any() and i + 1 < max_new):
-                break  # the JAX loop decodes once more here; nothing reads it
-            logits, _ = decode_step(self.params, self.spec, tok.token, seq_lens + i,
-                                    self.cache, block_tables, **self._fwd_kw)
-            if return_topk:
-                tok, qi, qp = sample_with_topk(logits, gen, return_topk, temperature, top_p)
-                q_cur = (qi, qp)
-            else:
-                tok = sample(logits, gen, temperature=temperature, top_p=top_p)
-
-        n = len(toks)
-        wmask = np.stack(writes, axis=1)                                  # [B, n]
-        decided = None
-        if decide is not None:
-            wmask_d = self._t(wmask)
-            lps_d = torch.zeros((B, max_new), dtype=torch.float32, device=self.device)
-            lps_d[:, :n] = torch.where(wmask_d, torch.stack(lps, 1).float(), 0.0)
-            decided = decide(lps_d, wmask_d.sum(dim=1))
-        out_toks = np.full((B, max_new), PAD_ID, np.int32)
-        out_lps = np.zeros((B, max_new), np.float32)
-        out_toks[:, :n] = np.where(wmask, torch.stack(toks, 1).cpu().numpy(), PAD_ID)
-        out_lps[:, :n] = np.where(wmask, torch.stack(lps, 1).float().cpu().numpy(), 0.0)
-        q_bufs = ()
-        if return_topk:
-            qi = np.zeros((B, max_new, return_topk), np.int32)
-            qp = np.zeros((B, max_new, return_topk), np.float32)
-            qi[:, :n] = np.where(wmask[..., None],
-                                 torch.stack([q[0] for q in q_rows], 1).cpu().numpy(), 0)
-            qp[:, :n] = np.where(wmask[..., None],
-                                 torch.stack([q[1] for q in q_rows], 1).cpu().numpy(), 0.0)
-            q_bufs = (qi, qp)
+        write sampled tokens until budget/eos (:meth:`_continue`).
+        ``seq_lens`` [B] are the context lengths when ``first`` was sampled.
+        Returns host arrays (out_toks [B, max_new], out_lps, gen_len [B],
+        q_bufs). ``decide`` (out_lps [B, max_new], gen_len [B], both on the
+        device) -> tensors runs on the device before anything is fetched; its
+        results come back as a fifth item, fetched with the tokens."""
+        B, K = seq_lens.shape[0], return_topk
+        out_q = ()
+        if K:
+            # the first token's support goes to slot 0; the loop stages the rest
+            out_q = (self._zeros((B, max_new, K), torch.int32),
+                     self._zeros((B, max_new, K), torch.float32))
+            if budget > 0:
+                out_q[0][:, 0], out_q[1][:, 0] = q_cur
+        with self.loops.hold():
+            st = self._continue(
+                gen, tok=first.token, lp=first.logprob, wr=self._zeros(B, torch.int32),
+                base=seq_lens, budget=budget, tables=block_tables,
+                out_toks=torch.full((B, max_new), PAD_ID, dtype=torch.int32, device=self.device),
+                out_lps=self._zeros((B, max_new), torch.float32), out_q=out_q,
+                temperature=temperature, top_p=top_p)
+            decided = decide(st["out_lps"], st["gen_len"]) if decide is not None else None
+            out_toks, out_lps, gen_len, qi, qp = self._host(
+                st["out_toks"], st["out_lps"], st["gen_len"], st.get("out_qi"), st.get("out_qp"))
+            if decided is not None:
+                decided = tuple(self._host(*decided))
+        q_bufs = (qi, qp) if K else ()
         if decided is not None:
-            return out_toks, out_lps, gen_len, q_bufs, tuple(d.cpu().numpy() for d in decided)
+            return out_toks, out_lps, gen_len, q_bufs, decided
         return out_toks, out_lps, gen_len, q_bufs
+
+    def _continue(self, gen, *, tok, lp, wr, base, budget, tables, out_toks, out_lps, out_q,
+                  temperature, top_p) -> dict:
+        """The decode loop of generate and of verify-continue (the JAX
+        ``while_loop``s), on the device: lane ``b`` writes ``tok`` at its
+        slot ``wr`` of ``out_toks`` [B, N] (and the sampled top-K of the
+        next token at ``wr + 1`` of ``out_q``), feeds it at position
+        ``base + wr`` and samples the next, until eos or ``budget``. The
+        state lives in a loop bucket and advances ``LOOP_CHUNK`` steps a run,
+        with one host read of the lanes' flag before each run. Returns the
+        bucket's state (outputs, ``gen_len`` = ``wr`` + the tokens written),
+        which the caller reads while it holds ``self.loops``."""
+        (B, P), N = tables.shape, out_toks.shape[1]
+        K = out_q[0].shape[-1] if out_q else 0
+        if N % LOOP_CHUNK:
+            raise ValueError(f"max_new {N} is not a multiple of {LOOP_CHUNK}")
+        bucket = self.loops.bucket(
+            ("decode", B, P, N, K, float(temperature), float(top_p)),
+            functools.partial(self._continue_state, B, P, N, K),
+            functools.partial(self._continue_steps, temperature=float(temperature),
+                              top_p=float(top_p), return_topk=K),
+            self._park,
+        )
+        st = bucket.state
+        for name, value in (("tok", tok), ("lp", lp), ("wr", wr), ("gen_len", wr),
+                            ("base", base), ("tables", tables), ("feed_tok", tok),
+                            ("feed_pos", base + wr), ("out_toks", out_toks),
+                            ("out_lps", out_lps), *zip(("out_qi", "out_qp"), out_q)):
+            st[name].copy_(value)
+        st["active"].fill_(True)
+        st["budget"].fill_(budget)
+        for _ in range(N // LOOP_CHUNK):
+            # the one host read of a chunk (the JAX loop's cond)
+            if not (st["active"] & (st["wr"] < st["budget"])).any().item():
+                break
+            bucket.run(gen)
+        return st
+
+    def _continue_state(self, B: int, P: int, N: int, K: int) -> dict:
+        i32, f32 = torch.int32, torch.float32
+        st = {
+            "tok": self._zeros(B, i32), "lp": self._zeros(B, f32),
+            "active": self._zeros(B, torch.bool), "wr": self._zeros(B, i32),
+            "gen_len": self._zeros(B, i32), "base": self._zeros(B, i32),
+            "budget": self._zeros(1, i32), "tables": self._zeros((B, P), i32),
+            "feed_tok": self._zeros(B, i32), "feed_pos": self._zeros(B, i32),
+            "out_toks": self._zeros((B, N), i32), "out_lps": self._zeros((B, N), f32),
+        }
+        if K:
+            st.update(out_qi=self._zeros((B, N, K), i32), out_qp=self._zeros((B, N, K), f32))
+        return st
+
+    def _continue_steps(self, st: dict, gen, *, temperature, top_p, return_topk) -> None:
+        """``LOOP_CHUNK`` iterations of the JAX loops' body, in place on the
+        state. A lane that stopped feeds its last written token at its last
+        position again (identical K/V), so nothing lands past it."""
+        active, tok, wr, budget = st["active"], st["tok"], st["wr"], st["budget"]
+        N = st["out_toks"].shape[1]
+        for _ in range(LOOP_CHUNK):
+            can_write = active & (wr < budget)
+            wrc = wr.clamp(0, N - 1).long()[:, None]
+            for name, new in (("out_toks", tok), ("out_lps", st["lp"])):
+                buf = st[name]
+                buf.scatter_(1, wrc, torch.where(can_write, new, buf.gather(1, wrc)[:, 0])[:, None])
+            st["gen_len"].add_(can_write.to(torch.int32))
+            if self.eos_id is not None:
+                active.logical_and_(tok != self.eos_id)
+            active.logical_and_(wr + 1 < budget)
+            st["feed_tok"].copy_(torch.where(can_write, tok, st["feed_tok"]))
+            st["feed_pos"].copy_(torch.where(can_write, st["base"] + wr, st["feed_pos"]))
+            logits, _ = decode_step(self.params, self.spec, st["feed_tok"], st["feed_pos"],
+                                    self.cache, st["tables"], **self._fwd_kw)
+            if return_topk:
+                res, nqi, nqp = sample_with_topk(logits, gen, return_topk, temperature, top_p)
+                # the next iteration writes res at slot wr+1: stage its q row
+                will = (active & (wr + 1 < budget))[:, None]
+                nwrc = (wr + 1).clamp(0, N - 1).long()[:, None, None].expand(-1, 1, return_topk)
+                for name, new in (("out_qi", nqi), ("out_qp", nqp)):
+                    buf = st[name]
+                    buf.scatter_(1, nwrc, torch.where(will, new, buf.gather(1, nwrc)[:, 0])[:, None])
+            else:
+                res = sample(logits, gen, temperature=temperature, top_p=top_p)
+            tok.copy_(res.token)
+            st["lp"].copy_(res.logprob)
+            wr.add_(1)
 
     def _outputs(self, out_toks, out_lps, gen_len, q_bufs, B, dt, return_topk):
         results = []
@@ -312,10 +400,10 @@ class TierEngine:
         seq_lens = np.asarray(lens + [1] * (Bb - B), np.int32)
 
         rid = f"gen{id(self)}_{time.monotonic_ns()}"
-        tables = np.zeros((Bb, max_pages), np.int32)
+        tables = np.full((Bb, self._width(max_pages)), self.allocator.n_pages, np.int32)
         try:
             for b in range(Bb):
-                tables[b] = self._alloc(f"{rid}_{b}", max_pages)
+                tables[b, :max_pages] = self._alloc(f"{rid}_{b}", max_pages)
             t0 = time.perf_counter()
             gen = self._generator(seed)
             seq_lens_t, tables_t = self._t(seq_lens), self._t(tables)
@@ -352,7 +440,7 @@ class TierEngine:
         tokens = np.full((Bb, Wb), PAD_ID, np.int32)
         offsets = np.zeros((Bb,), np.int32)
         win_lens = np.ones((Bb,), np.int32)
-        tables = np.full((Bb, max_pages), oob, np.int32)
+        tables = np.full((Bb, self._width(max_pages)), oob, np.int32)
         rid = f"genc{id(self)}_{time.monotonic_ns()}"
         try:
             for i, (sx, (pref_pages, n_reused, _held, _fill)) in enumerate(zip(suffix, acqs)):
@@ -451,14 +539,17 @@ class TierEngine:
     @staticmethod
     def _host(*tensors):
         """Copy result tensors to the host (the call's one sync point);
-        ``None`` stays ``None``, floats come back as f32."""
+        ``None`` stays ``None``, floats come back as f32. Always copies: on
+        the CPU ``.numpy()`` would share the memory of a loop bucket's
+        outputs, which the bucket's next call overwrites."""
         out = []
         for t in tensors:
             if t is None:
                 out.append(None)
             else:
                 t = t.detach()
-                out.append((t.float() if t.is_floating_point() else t).cpu().numpy())
+                a = (t.float() if t.is_floating_point() else t).cpu().numpy()
+                out.append(a.copy() if t.device.type == "cpu" else a)
         return out
 
     def _rows(self, temps, top_ps):
@@ -588,41 +679,57 @@ class TierEngine:
         n_acc_h, tok_h, lp_h, dlp_h, qi, qp = self._host(n_acc, tok, lp, draft_lp, qi, qp)
         return n_acc_h, tok_h, lp_h, dlp_h, ((qi, qp) if return_topk else ())
 
-    def _scan(self, tok, pos, rem, tables, temps, top_ps, gen, n_steps: int, return_topk: int):
-        """``n_steps`` decode + sample iterations, all state on the device:
-        lanes with ``rem`` > 0 emit; a lane that runs out of budget (or
-        samples eos) mid-scan keeps re-feeding its last token at a frozen
-        position, which rewrites identical K/V, and its emissions are masked.
-        No step reads a value back to the host, so the whole scan is one
-        stream of launches. Returns device (out_t [B, n], out_l, emitted [B],
-        qi, qp) and the final (tok, pos, rem)."""
-        B = tok.shape[0]
-        dev = self.device
-        out_t = torch.full((B, n_steps), PAD_ID, dtype=torch.int32, device=dev)
-        out_l = torch.zeros((B, n_steps), dtype=torch.float32, device=dev)
-        emitted = torch.zeros((B,), dtype=torch.int32, device=dev)
-        qi = qp = None
-        if return_topk:
-            qi = torch.zeros((B, n_steps, return_topk), dtype=torch.int32, device=dev)
-            qp = torch.zeros((B, n_steps, return_topk), dtype=torch.float32, device=dev)
+    def _scan_bucket(self, B: int, P: int, n_steps: int, return_topk: int):
+        """The scan bucket of ``B`` lanes over a ``P``-page block table."""
+        return self.loops.bucket(
+            ("scan", B, P, n_steps, return_topk),
+            functools.partial(self._scan_state, B, P, n_steps, return_topk),
+            functools.partial(self._scan_steps, n_steps=n_steps, return_topk=return_topk),
+            self._park,
+        )
+
+    def _scan_state(self, B: int, P: int, n: int, K: int) -> dict:
+        i32, f32 = torch.int32, torch.float32
+        st = {"tok": self._zeros(B, i32), "pos": self._zeros(B, i32), "rem": self._zeros(B, i32),
+              "temps": self._zeros(B, f32), "top_ps": self._zeros(B, f32),
+              "tables": self._zeros((B, P), i32), "out_t": self._zeros((B, n), i32),
+              "out_l": self._zeros((B, n), f32), "emitted": self._zeros(B, i32)}
+        if K:
+            st.update(qi=self._zeros((B, n, K), i32), qp=self._zeros((B, n, K), f32))
+        return st
+
+    def _scan_steps(self, st: dict, gen, *, n_steps: int, return_topk: int) -> None:
+        """``n_steps`` decode + sample iterations, all state on the device
+        and advanced in place: lanes with ``rem`` > 0 emit; a lane that runs
+        out of budget (or samples eos) mid-scan keeps re-feeding its last
+        token at a frozen position, which rewrites identical K/V, and its
+        emissions are masked. No step reads a value back to the host, so the
+        whole scan is one stream of launches (one graph on a CUDA device)."""
+        tok, pos, rem = st["tok"], st["pos"], st["rem"]
+        out_t, out_l, emitted = st["out_t"], st["out_l"], st["emitted"]
+        emitted.zero_()  # every step writes its column of the other outputs
         for i in range(n_steps):
             active = rem > 0
-            logits, _ = decode_step(self.params, self.spec, tok, pos, self.cache, tables,
+            logits, _ = decode_step(self.params, self.spec, tok, pos, self.cache, st["tables"],
                                     **self._fwd_kw)
-            res, ri, rp = sample_rows_with_topk(logits, gen, temps, return_topk, top_ps)
+            res, ri, rp = sample_rows_with_topk(logits, gen, st["temps"], return_topk,
+                                                st["top_ps"])
             if return_topk:
-                qi[:, i] = torch.where(active[:, None], ri, torch.zeros_like(ri))
-                qp[:, i] = torch.where(active[:, None], rp, torch.zeros_like(rp))
-            out_t[:, i] = torch.where(active, res.token, torch.full_like(res.token, PAD_ID))
-            out_l[:, i] = torch.where(active, res.logprob, torch.zeros_like(res.logprob))
+                st["qi"][:, i] = torch.where(active[:, None], ri, 0)
+                st["qp"][:, i] = torch.where(active[:, None], rp, 0.0)
+            out_t[:, i] = torch.where(active, res.token, PAD_ID)
+            out_l[:, i] = torch.where(active, res.logprob, 0.0)
             step = active.to(torch.int32)
-            emitted = emitted + step
-            rem = rem - step
+            emitted.add_(step)
+            rem.sub_(step)
             if self.eos_id is not None:
-                rem = torch.where(active & (res.token == self.eos_id), torch.zeros_like(rem), rem)
-            tok = torch.where(active, res.token, tok)
-            pos = pos + step
-        return (out_t, out_l, emitted, qi, qp), (tok, pos, rem)
+                rem.masked_fill_(active & (res.token == self.eos_id), 0)
+            tok.copy_(torch.where(active, res.token, tok))
+            pos.add_(step)
+
+    @staticmethod
+    def _scan_outputs(st: dict) -> tuple:
+        return st["out_t"], st["out_l"], st["emitted"], st.get("qi"), st.get("qp")
 
     def decode_sample_scan(
         self, tokens, positions, block_tables, temps, seed: int, remaining, *,
@@ -634,35 +741,44 @@ class TierEngine:
         Callers pre-grow each active lane's pages to cover position +
         n_steps. Returns host (out_tokens [B, n_steps], out_logprobs
         [B, n_steps], emitted [B], q_out)."""
+        tables = self._t(np.asarray(block_tables, np.int32))
         temps_t, tps_t = self._rows(temps, top_ps)
-        handles, _ = self._scan(
-            self._t(np.asarray(tokens, np.int32)), self._t(np.asarray(positions, np.int32)),
-            self._t(np.asarray(remaining, np.int32)),
-            self._t(np.asarray(block_tables, np.int32)), temps_t, tps_t,
-            self._generator(seed), n_steps, return_topk,
-        )
-        return self.fetch_scan_handles(handles)
+        lanes = (("tok", tokens), ("pos", positions), ("rem", remaining))
+        with self.loops.hold():
+            bucket = self._scan_bucket(*tables.shape, n_steps, return_topk)
+            st = bucket.state
+            for name, values in lanes:
+                st[name].copy_(self._t(np.asarray(values, np.int32)))
+            st["temps"].copy_(temps_t)
+            st["top_ps"].copy_(tps_t)
+            st["tables"].copy_(tables)
+            bucket.run(self._generator(seed))
+            return self.fetch_scan_handles(self._scan_outputs(st))
 
     # device-carry scanning: lane state stays on the device between scans ---------
     def scan_carry_init(self, tokens, positions, remaining, temps, top_ps, seed: int) -> dict:
         """Stage lane state on the device for chained scans: a dict of device
-        tensors plus the generator whose state the scans advance."""
+        tensors (copies: the scans and patches write them in place) plus the
+        generator whose state the scans advance."""
+
+        def own(values, dtype):
+            return torch.tensor(np.asarray(values, dtype), device=self.device)
+
         return {
-            "tok": self._t(np.asarray(tokens, np.int32)),
-            "pos": self._t(np.asarray(positions, np.int32)),
-            "rem": self._t(np.asarray(remaining, np.int32)),
+            "tok": own(tokens, np.int32),
+            "pos": own(positions, np.int32),
+            "rem": own(remaining, np.int32),
             "gen": self._generator(seed),
-            "temps": self._t(np.asarray(temps, np.float32)),
-            "top_ps": self._t(np.asarray(top_ps, np.float32)),
+            "temps": own(temps, np.float32),
+            "top_ps": own(top_ps, np.float32),
         }
 
     def scan_carry_update(self, carry: dict, lanes, tokens, positions, remaining,
                           temps=None, top_ps=None) -> dict:
-        """Patch fresh per-lane state (admissions) into a device carry
-        without touching the other lanes. The patched tensors are new ones: a
-        scan already enqueued on the old carry is unaffected."""
+        """Patch fresh per-lane state (admissions) into the device carry in
+        place, without touching the other lanes. A scan already enqueued
+        reads the carry before the patch (stream order); returns ``carry``."""
         idx = self._t(np.asarray(lanes, np.int64))
-        upd = dict(carry)
         fields = [("tok", tokens, np.int32), ("pos", positions, np.int32),
                   ("rem", remaining, np.int32)]
         if temps is not None:
@@ -670,39 +786,44 @@ class TierEngine:
         if top_ps is not None:
             fields.append(("top_ps", top_ps, np.float32))
         for name, values, dt in fields:
-            upd[name] = carry[name].index_copy(0, idx, self._t(np.asarray(values, dt)))
-        return upd
+            carry[name].index_copy_(0, idx, self._t(np.asarray(values, dt)))
+        return carry
 
     def scan_carry_mask(self, carry: dict, lanes) -> dict:
-        """Zero the budgets of ``lanes`` (retired/preempted): the scan masks
-        rem == 0 lanes, so they can stay in the dispatch harmlessly."""
-        idx = self._t(np.asarray(lanes, np.int64))
-        upd = dict(carry)
-        upd["rem"] = carry["rem"].index_fill(0, idx, 0)
-        return upd
+        """Zero the budgets of ``lanes`` (retired/preempted) in place: the
+        scan masks rem == 0 lanes, so they can stay in the dispatch
+        harmlessly. Returns ``carry``."""
+        carry["rem"].index_fill_(0, self._t(np.asarray(lanes, np.int64)), 0)
+        return carry
 
     def decode_sample_scan_carry_async(self, carry: dict, block_tables_dev, *, n_steps: int,
                                        return_topk: int = 0):
         """Enqueue one chained scan WITHOUT fetching: returns (device result
-        handles, new_carry). Nothing on this path copies from or to the
-        host, so the caller can enqueue the next scan from ``new_carry``
-        before it fetches this one's handles."""
-        handles, (tok, pos, rem) = self._scan(
-            carry["tok"], carry["pos"], carry["rem"], block_tables_dev, carry["temps"],
-            carry["top_ps"], carry["gen"], n_steps, return_topk,
-        )
-        new_carry = dict(carry)
-        new_carry["tok"], new_carry["pos"], new_carry["rem"] = tok, pos, rem
-        return handles, new_carry
+        handles, carry advanced in place). Nothing on this path copies from
+        or to the host, so the caller can enqueue the next scan from the
+        carry before it fetches this one's handles: the handles are copies
+        of the bucket's outputs, which the next scan overwrites. The carry is
+        copied into the bucket's state before the run and back after it."""
+        with self.loops.hold():
+            bucket = self._scan_bucket(*block_tables_dev.shape, n_steps, return_topk)
+            st = bucket.state
+            for name in ("tok", "pos", "rem", "temps", "top_ps"):
+                st[name].copy_(carry[name])
+            st["tables"].copy_(block_tables_dev)
+            bucket.run(carry["gen"])
+            for name in ("tok", "pos", "rem"):
+                carry[name].copy_(st[name])
+            handles = tuple(None if t is None else t.clone() for t in self._scan_outputs(st))
+        return handles, carry
 
     def decode_sample_scan_carry(self, carry: dict, block_tables_dev, *, n_steps: int,
                                  return_topk: int = 0):
         """One chained scan from a device-resident carry. Returns (host
-        (out_tokens, out_logprobs, emitted, q_out), new_carry)."""
-        handles, new_carry = self.decode_sample_scan_carry_async(
+        (out_tokens, out_logprobs, emitted, q_out), carry)."""
+        handles, carry = self.decode_sample_scan_carry_async(
             carry, block_tables_dev, n_steps=n_steps, return_topk=return_topk
         )
-        return self.fetch_scan_handles(handles), new_carry
+        return self.fetch_scan_handles(handles), carry
 
     @classmethod
     def fetch_scan_handles(cls, handles):
@@ -850,14 +971,14 @@ class TierEngine:
             return_topk = 0  # greedy consumers re-verify greedily; no q needed
 
         rid = f"ver{id(self)}_{time.monotonic_ns()}"
-        tables = np.full((Bb, max_pages), self.allocator.n_pages, np.int32)
+        tables = np.full((Bb, self._width(max_pages)), self.allocator.n_pages, np.int32)
         try:
             for b in range(Bb):
                 pref = acqs[b][0] if cached and b < B else []
                 own = max_pages - len(pref)
                 tables[b, : len(pref)] = pref
                 if own:
-                    tables[b, len(pref):] = self._alloc(f"{rid}_{b}", own)
+                    tables[b, len(pref):max_pages] = self._alloc(f"{rid}_{b}", own)
             t0 = time.perf_counter()
             out_toks, out_lps, gen_len, n_acc, q_bufs = self._verify(
                 tokens, prompt_lens, total_lens, offsets, tables, dq, seed,
@@ -881,8 +1002,10 @@ class TierEngine:
 
     def _verify(self, tokens_np, prompt_lens_np, total_lens_np, offsets_np, tables_np, dq,
                 seed, *, budget, max_new, max_draft, temperature, top_p, return_topk, cached):
-        """Verify pass + continued decode (JAX ``_make_verify_continue_fn``).
-        Returns host (out_toks, out_lps, gen_len, n_acc, q_bufs)."""
+        """Verify pass + continued decode (JAX ``_make_verify_continue_fn``):
+        the verify forward eagerly (its window varies per call), then the
+        continue loop on the device (:meth:`_continue`). Returns host
+        (out_toks, out_lps, gen_len, n_acc, q_bufs)."""
         gen = self._generator(seed)
         tokens, tables = self._t(tokens_np), self._t(tables_np)
         prompt_lens, total_lens = self._t(prompt_lens_np), self._t(total_lens_np)
@@ -941,67 +1064,34 @@ class TierEngine:
             draft_lp = pick(logp_d, draft)
             logp_w = logp_d
 
-        n_acc_h = n_acc.cpu().numpy().astype(np.int32)
-        draft_h = draft.cpu().numpy()
-        draft_lp_h = draft_lp.float().cpu().numpy()
         # output buffer: accepted draft prefix, then the bonus token, then decoding
-        slots = np.arange(max_new)[None, :]
-        accepted = slots < n_acc_h[:, None]
-        padn = max(max_new - max_draft, 0)
-        out_toks = np.where(accepted, np.pad(draft_h, ((0, 0), (0, padn)))[:, :max_new],
-                            PAD_ID).astype(np.int32)
-        out_lps = np.where(accepted, np.pad(draft_lp_h, ((0, 0), (0, padn)))[:, :max_new],
-                           0.0).astype(np.float32)
-        q_bufs = ()
-        if return_topk:
+        N, Dw = max_new, max_draft
+        n_acc = n_acc.to(torch.int32)
+        slots = torch.arange(N, device=self.device)[None, :]
+        accepted = slots < n_acc[:, None]
+        padn = max(N - Dw, 0)
+        out_toks = torch.where(accepted, F.pad(draft.to(torch.int32), (0, padn))[:, :N], PAD_ID)
+        out_lps = torch.where(accepted, F.pad(draft_lp.float(), (0, padn))[:, :N], 0.0)
+        K = return_topk
+        if K:
             # window slots j <= n_acc carry the verifier's own top-K there
-            w_lp, w_ids = torch.topk(logp_w, return_topk, dim=-1)        # [B, Dw+1, K]
-            padw = max(max_new - (max_draft + 1), 0)
-            wi = np.pad(w_ids.cpu().numpy(), ((0, 0), (0, padw), (0, 0)))[:, :max_new]
-            wp = np.pad(torch.exp(w_lp).cpu().numpy(), ((0, 0), (0, padw), (0, 0)))[:, :max_new]
-            in_window = (slots <= n_acc_h[:, None])[..., None]
-            q_bufs = (np.where(in_window, wi, 0).astype(np.int32),
-                      np.where(in_window, wp, 0.0).astype(np.float32))
+            w_lp, w_ids = torch.topk(logp_w, K, dim=-1)                   # [B, Dw+1, K]
+            padw = max(N - (Dw + 1), 0)
+            in_window = (slots <= n_acc[:, None])[..., None]
+            out_qi = torch.where(in_window, F.pad(w_ids.to(torch.int32),
+                                                  (0, 0, 0, padw))[:, :N], 0)
+            out_qp = torch.where(in_window, F.pad(torch.exp(w_lp).float(),
+                                                  (0, 0, 0, padw))[:, :N], 0.0)
 
-        active = np.ones(B, bool)
-        gen_len = n_acc_h.copy()
-        wr = n_acc_h.copy()          # next write slot; the bonus goes here
-        rows = np.arange(B)
-        tok = SampleResult(bonus_tok, bonus_lp)
-        steps, q_steps = [], []
-        while active.any() and (wr < budget).any():
-            can_write = active & (wr < budget)
-            steps.append((tok.token, tok.logprob, can_write, np.clip(wr, 0, max_new - 1)))
-            gen_len += can_write
-            if self.eos_id is not None:
-                active &= tok.token.cpu().numpy() != self.eos_id
-            active &= wr + 1 < budget
-            if not (active.any() and (wr + 1 < budget).any()):
-                break  # the JAX loop decodes once more here; nothing reads it
-            logits, _ = decode_step(self.params, self.spec, tok.token,
-                                    prompt_lens + self._t(wr.astype(np.int32)),
-                                    self.cache, tables, **self._fwd_kw)
-            if return_topk:
-                tok, nqi, nqp = sample_with_topk(logits, gen, return_topk, temperature, top_p)
-                # the next iteration writes tok at slot wr+1: stage its q row
-                q_steps.append((nqi, nqp, active & (wr + 1 < budget),
-                                np.clip(wr + 1, 0, max_new - 1)))
-            else:
-                tok = sample(logits, gen, temperature=temperature, top_p=top_p)
-            wr = wr + 1
-
-        if steps:
-            toks = torch.stack([s[0] for s in steps]).cpu().numpy()          # [n, B]
-            lps = torch.stack([s[1] for s in steps]).float().cpu().numpy()
-            for t, (_, _, can_write, wrc) in enumerate(steps):
-                r = rows[can_write]
-                out_toks[r, wrc[can_write]] = toks[t, can_write]
-                out_lps[r, wrc[can_write]] = lps[t, can_write]
-        for nqi, nqp, will, nwrc in q_steps:
-            r = rows[will]
-            q_bufs[0][r, nwrc[will]] = nqi.cpu().numpy()[will]
-            q_bufs[1][r, nwrc[will]] = nqp.cpu().numpy()[will]
-        return out_toks, out_lps, gen_len, n_acc_h, q_bufs
+        with self.loops.hold():
+            st = self._continue(
+                gen, tok=bonus_tok, lp=bonus_lp, wr=n_acc, base=prompt_lens, budget=budget,
+                tables=tables, out_toks=out_toks, out_lps=out_lps,
+                out_q=(out_qi, out_qp) if K else (), temperature=temperature, top_p=top_p)
+            out_toks, out_lps, gen_len, n_acc, qi, qp = self._host(
+                st["out_toks"], st["out_lps"], st["gen_len"], n_acc, st.get("out_qi"),
+                st.get("out_qp"))
+        return out_toks, out_lps, gen_len, n_acc, ((qi, qp) if K else ())
 
     # ops/info ---------------------------------------------------------------------
     def warmup(self, batch: int = 1, prompt_len: int = 16, max_new: int = 8) -> float:

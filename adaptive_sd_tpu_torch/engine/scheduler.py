@@ -208,7 +208,10 @@ class ContinuousBatchingScheduler:
         # ``_carry_host`` mirrors what the device carry holds; each round the
         # desired host state is diffed against it and only changed lanes are
         # scatter-patched (admissions, retires, preemptions) — zero hooks in
-        # the mutation sites, self-healing by construction.
+        # the mutation sites, self-healing by construction. Patches write
+        # the carry in place; the engine copies it into its scan graph's
+        # state when it enqueues a round, so stream order keeps an enqueued
+        # round on the values before a patch.
         self.device_carry = bool(device_carry)
         self._carry = None
         self._carry_host: Optional[dict] = None
@@ -219,7 +222,8 @@ class ContinuousBatchingScheduler:
         self._carry_patches = 0
         # Pipelined scans (requires device_carry): round N+1 is enqueued
         # from the device carry BEFORE round N's results are fetched, so the
-        # host launches ahead while the card works. Host bookkeeping runs
+        # host launches ahead while the card works (a round's handles are
+        # copies of the scan's outputs, which round N+1 overwrites). Host bookkeeping runs
         # one round stale; the scan masks zero-budget lanes, so a lane that
         # finished in the unprocessed round idles harmlessly for one extra
         # dispatch.

@@ -10,6 +10,8 @@ raise on a non-zero code. Nothing here runs at import time.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import os
 import shutil
@@ -47,7 +49,11 @@ class LaunchCounter:
     launches. Set ``shapes`` to a set to collect the distinct shapes the
     kernel was launched at (the paged window wrapper adds each call with
     its offset and length tensors themselves, fresh for each forward, so
-    that collecting runs nothing on the card)."""
+    that collecting runs nothing on the card).
+
+    Inside :func:`diverted_launches` a launch goes to the block's record
+    instead (the warm-up and the capture of a CUDA graph); a graph's replay
+    adds its capture's record with :func:`count_launches`."""
 
     def __init__(self) -> None:
         self.launches = 0
@@ -55,11 +61,42 @@ class LaunchCounter:
         self.shapes: set | None = None
 
     def launched(self, *shape) -> None:
-        self.launches += 1
-        if shape[0] > 16:
-            self.windows += 1
-        if self.shapes is not None:
+        records = getattr(_diverted, "stack", None)
+        if records:
+            records[-1][(self, shape)] += 1
+        else:
+            self._add(shape, 1)
+
+    def _add(self, shape: tuple, n: int) -> None:
+        self.launches += n
+        if shape and shape[0] > 16:
+            self.windows += n
+        if self.shapes is not None and shape:
             self.shapes.add(shape)
+
+
+_diverted = threading.local()
+
+
+@contextlib.contextmanager
+def diverted_launches():
+    """Record this thread's launches in the block in a ``Counter`` of
+    (counter, shape) -> launches instead of counting them."""
+    record = collections.Counter()
+    stack = getattr(_diverted, "stack", None)
+    if stack is None:
+        stack = _diverted.stack = []
+    stack.append(record)
+    try:
+        yield record
+    finally:
+        stack.pop()
+
+
+def count_launches(record) -> None:
+    """Add a :func:`diverted_launches` record to the counters (and shapes)."""
+    for (counter, shape), n in record.items():
+        counter._add(shape, n)
 
 
 _lock = threading.Lock()
@@ -173,12 +210,18 @@ def tile_counters(t, stream: int, n: int):
     (INT8 matmul, paged decode, paged window) find a tile's last block with a counter
     and that block returns it to 0, so every launch leaves the buffer zero:
     it is zeroed once, and each stream has its own, so no memset runs per
-    call and concurrent streams never share a counter."""
+    call and concurrent streams never share a counter. A stream that is
+    capturing a CUDA graph must have its buffer already (the graph's
+    warm-up makes it): one made inside the capture would come from the
+    graph's pool and outlive the graph here."""
     import torch
 
     key = (t.device.index, stream)
     buf = _tile_counters.get(key)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("tile counters first needed inside a CUDA graph capture: "
+                               "warm the graph up on its capture stream first")
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=t.device)
         _tile_counters[key] = buf
     return buf

@@ -209,7 +209,7 @@ def paged_attention(
         int(q.dtype == torch.bfloat16), stream,
     )
     _kernels.check(rc, "paged decode attention")
-    paged_decode_counter.launches += 1
+    paged_decode_counter.launched()
     return out
 
 
@@ -259,7 +259,7 @@ def paged_window_attention(
                 int(group), D, n_pages, page, max_pages, tile0, min(tiles, n_tiles - tile0),
                 float(sm_scale), int(q.dtype == torch.bfloat16), stream)
         _kernels.check(rc, "paged window attention")
-        paged_window_counter.launches += 1
+        paged_window_counter.launched()
     if paged_window_counter.shapes is not None:
         # the call's shape with its offset and length tensors (fresh for each
         # forward, never written after): collecting runs nothing on the card

@@ -83,6 +83,16 @@ Phases, one JSON line each; any failure exits non-zero:
    items (``run`` equal to ``run_one`` item by item) beside the oracles'
    assignments. Its qualities are model outputs on random weights
    ("quality_model": "synthetic-workload"), not speed results.
+   graphs: the engines' decode loops (generate, verify-continue, the
+   scheduler's scan) replay captured CUDA graphs in every phase; here they
+   run without capture and graphed in turn (eager, graphed, graphed, eager)
+   on the 7B INT8, 14B INT4 and 32B INT4 tiers (bf16): ``generate`` and
+   ``verify_continue`` of half its own output at the serve phase's prompts,
+   then the W8A8 scheduler's twelve requests. Tokens, accepted counts and
+   launch counts must be equal, and the scheduler's tokens must give
+   SCHED_TOKENS_CRC; the loop's time a step, its device busy time and
+   the idle share of a profiled loop (busy time over that loop's own span),
+   tokens/s, capture seconds per graph and the graphs' pool bytes.
 7. step: one decode step of each tier, its launches per kernel, its time and
    the device's busy time by kernel (torch.profiler), and the seconds of a
    512-token prefill and its device time by kernel; the INT4 tiers also with
@@ -105,7 +115,8 @@ Phases, one JSON line each; any failure exits non-zero:
    every one of them.
 
 The kernels' launch counters are zeroed just before each of the paths 4, 5,
-6 and 8 (the scheduler, checkpoint, scheduled_pipeline and routing paths too)
+6 and 8 (the scheduler, checkpoint, scheduled_pipeline, routing and graphs
+paths too; a graph's replay adds the launches its capture recorded)
 and read just after;
 every kernel of a path must have been launched. The scheduled_pipeline path
 counts the scheduled plane's runs only, not the fused runs it is held against.
@@ -152,6 +163,7 @@ from adaptive_sd_tpu_torch.core.types import RequestContext
 from adaptive_sd_tpu_torch.engine import ContinuousBatchingScheduler, TierEngine
 from adaptive_sd_tpu_torch.engine import native_bridge
 from adaptive_sd_tpu_torch.engine.decode import _bucket_len
+from adaptive_sd_tpu_torch.engine.graphs import LOOP_CHUNK, DeviceLoops
 from adaptive_sd_tpu_torch.evalx import (
     LambdaSweepHarness,
     expected_gate_constrained_assignments,
@@ -253,6 +265,13 @@ SCHED_SCAN = 8
 SCHED_MAX_NEW = 160
 SCHED_CONTEXT = 1024
 SCHED_PROMPT_LENS = (40, 110, 500, 230, 360, 75, 490, 240, 120, 370, 100, 450)
+# Decode steps of the graphs phase's profiled generate loops (torch.profiler
+# over an eager 32B loop takes minutes; the device time a step is the same)
+GRAPH_PROFILE_STEPS = 8
+# CRC-32 of the W8A8 scheduler's tokens for these prompts and seeds (a greedy
+# walk whose lanes do not depend on their batch-mates), measured on an NVIDIA
+# H100 80GB HBM3 with and without CUDA graphs (PERF.md)
+SCHED_TOKENS_CRC = 909282897
 # W8A8 rows in the kernels phase: decode lanes, then verify/admission windows
 W8A8_M_SMALL = (1, 4, 8)
 W8A8_M_WINDOWS = (192, 576, 2304)
@@ -268,7 +287,7 @@ INT8_M_WINDOWS = (32, 192, 512, 576, 2304)
 # every epoch), the tolerance of the card's per-epoch losses against the
 # CPU's, the quality-gate controller's target and warm-up, the sweep's
 # lambdas and gsm-style items, and the walk's workload size and lambdas
-ROUTE_SUITES = {"factual-qa": 2, "gsm-style": 2, "humaneval-style": 2}
+ROUTE_SUITES = {"factual-qa": 6, "gsm-style": 5, "humaneval-style": 5}
 ROUTE_MAX_NEW = 16
 ROUTE_SYNTHETIC = 200
 ROUTE_EPOCHS = 12
@@ -276,7 +295,7 @@ ROUTE_BATCH = 64
 FIT_TOL = 1e-3
 GATE_TARGET = 0.9
 GATE_WARMUP = 2
-ROUTE_REQUESTS = 4
+ROUTE_REQUESTS = 8
 SWEEP_LAMBDAS = (0.3, 3.0)
 SWEEP_ITEMS = 4
 WALK_ITEMS = 12
@@ -1084,6 +1103,10 @@ def phase_reference_sched(dev) -> None:
     for act_quant in (False, True):
         kw = dict(page_size=PAGE, enable_prefix_cache=True, act_quant=act_quant)
         runs, forced, recorded = {}, {}, {}
+        # the recorder copies every W8A8 call's activations to the host, which a
+        # graph's replay does not run: the W8A8 engines decode without capture
+        # here (the graphs phase holds graphed runs to such runs bit for bit)
+        kw["cuda_graphs"] = not act_quant
         for where, prm, device in (("cpu", params, "cpu"), ("card", on_card, dev)):
             roomy = TierEngine(TINY128, prm, device=device, n_pages=32, **kw)
             # the CPU's schedulers scan their lanes in Python, the card's in
@@ -1962,7 +1985,8 @@ def _scan_profile(engine) -> dict:
     """One 8-lane decode scan of SCHED_SCAN steps on ``engine``: its time on
     the card (CUDA events), the device's busy time by kernel (torch.profiler),
     and the count of host syncs inside it (none: the scan's handles are
-    fetched after the last step is enqueued)."""
+    fetched after the last step is enqueued). The idle share compares the
+    profiled scan's busy time with that same scan's span (CUDA events)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1997,8 +2021,11 @@ def _scan_profile(engine) -> dict:
         end.synchronize()
         scan_ms = start.elapsed_time(end) / reps
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start.record()
             handles = scan()
+            end.record()
             torch.cuda.synchronize()
+        profiled_ms = start.elapsed_time(end)
         engine.fetch_scan_handles(handles)
     finally:
         for r in rids:
@@ -2015,8 +2042,8 @@ def _scan_profile(engine) -> dict:
     busy = sum(ms for _, ms in kernels) if kernels else None
     return {"lanes": B, "steps": SCHED_SCAN, "positions": pos, "launches": launches,
             "scan_ms": scan_ms, "step_ms": scan_ms / SCHED_SCAN, "enqueue_ms": enqueue_s * 1e3,
-            "device_busy_ms": busy,
-            "idle_share": None if busy is None else max(0.0, 1.0 - busy / scan_ms),
+            "device_busy_ms": busy, "profiled_scan_ms": profiled_ms,
+            "idle_share": None if busy is None else 1.0 - busy / profiled_ms,
             "host_syncs_in_scan": syncs,
             "kernel_ms": {name: sum(ms for k, ms in kernels if name in k)
                           for name in ("w8a8_mma", "quant_rows", "paged_decode")},
@@ -2145,6 +2172,8 @@ def phase_scheduler(dev, tier0) -> tuple:
         fail(f"scheduler ({dtype}): the {' and '.join(differs)}-preempted run differs from the "
              f"unpressured run: first differences "
              f"{[r['first_difference_at'] for r in rows[1:3]]}")
+    if rows[0]["tokens_crc32"] != SCHED_TOKENS_CRC:
+        fail(f"scheduler: tokens CRC {rows[0]['tokens_crc32']}, want {SCHED_TOKENS_CRC}")
     if scan["host_syncs_in_scan"]:
         fail(f"scheduler: host syncs inside the scan: {scan['host_syncs_in_scan']}")
     del tight
@@ -2157,6 +2186,201 @@ def phase_scheduler(dev, tier0) -> tuple:
     return launches, engine
 
 
+@contextlib.contextmanager
+def _eager_loops(engine):
+    """The engine's decode loops run without capture (the same device-side
+    steps, ``cuda_graphs=False``) inside the block."""
+    graphed = engine.loops
+    engine.loops = DeviceLoops(engine.device, cuda_graphs=False)
+    try:
+        yield
+    finally:
+        engine.loops = graphed
+
+
+def _kernel_ms(prof) -> list:
+    """(kernel name, device ms) of a torch.profiler run, largest first."""
+    from torch.autograd import DeviceType
+
+    return sorted(((ev.key, ev.self_device_time_total / 1e3) for ev in prof.key_averages()
+                   if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0),
+                  key=lambda kv: -kv[1])
+
+
+class _LoopClock:
+    """Times an engine's generate decode loop (``_decode_loop``, which ends
+    in the fetch of its outputs, a sync) on the host clock; with
+    ``profiled`` set, the next loop runs under torch.profiler and its
+    kernels' device time is kept, with the loop's span on the card (CUDA
+    events around the same loop)."""
+
+    def __init__(self, engine):
+        self.engine, self.real = engine, engine._decode_loop
+        self.seconds, self.busy_ms, self.span_ms, self.kernel_ms = [], [], [], []
+        self.profiled = False
+        engine._decode_loop = self
+
+    def __call__(self, *a, **kw):
+        from torch.profiler import ProfilerActivity, profile
+
+        torch.cuda.synchronize()
+        if not self.profiled:
+            t0 = time.perf_counter()
+            out = self.real(*a, **kw)
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start.record()
+            out = self.real(*a, **kw)
+            end.record()
+            torch.cuda.synchronize()
+        kernels = _kernel_ms(prof)
+        self.busy_ms.append(sum(ms for _, ms in kernels))
+        self.span_ms.append(start.elapsed_time(end))
+        self.kernel_ms.append({name: sum(ms for k, ms in kernels if name in k)
+                               for name in ("int8_matmul", "int4_matmul", "splitk_reduce",
+                                            "w8a8", "paged_decode")})
+        self.profiled = False
+        return out
+
+    def close(self):
+        del self.engine._decode_loop
+
+
+def _graph_tier(engine, prompts) -> dict:
+    """``generate`` and ``verify_continue`` (of the first half of its own
+    greedy output, so that the continue loop runs) on one tier, without
+    capture and graphed in turn: eager, graphed, graphed, eager, after one
+    graphed run that captures. Tokens, accepted counts and launch counts
+    must be equal. The generate loop's time a step (its LOOP_CHUNK-step
+    runs, host clock, batch 4), its device busy time and its span on the
+    card (one more profiled loop of GRAPH_PROFILE_STEPS steps a mode) and
+    the idle share of that profiled loop; capture
+    seconds and pool bytes of the tier's graphs."""
+    label = f"{engine.spec.name} {engine.params['embed'].dtype}"
+    clock = _LoopClock(engine)
+    runs = []
+    try:
+        for mode in ("capture", "eager", "graphed", "graphed", "eager"):
+            with _eager_loops(engine) if mode == "eager" else contextlib.nullcontext():
+                zero_counters()
+                own, t_gen = _call(engine.generate, prompts, max_new=MAX_NEW)
+                n_gen = read_counters()
+                loop_s = clock.seconds[-1]
+                drafts = [o.token_ids[: MAX_NEW // 2].tolist() for o in own]
+                zero_counters()
+                ver, t_ver = _call(engine.verify_continue, prompts, drafts, max_new=MAX_NEW)
+                n_ver = read_counters()
+            _check_outputs(f"graphs {label} {mode}", own, engine.spec.vocab_size)
+            runs.append({"mode": mode, "generate_s": t_gen, "loop_s": loop_s,
+                         "verify_s": t_ver, "tokens": [o.token_ids.tolist() for o in own],
+                         "verified": [o.token_ids.tolist() for o, _ in ver],
+                         "n_acc": [n for _, n in ver], "launches": (n_gen, n_ver)})
+        busy, span, by_kernel = {}, {}, {}
+        for mode in ("eager", "graphed"):
+            with _eager_loops(engine) if mode == "eager" else contextlib.nullcontext():
+                clock.profiled = True
+                _call(engine.generate, prompts, max_new=GRAPH_PROFILE_STEPS)
+                busy[mode] = clock.busy_ms[-1] / GRAPH_PROFILE_STEPS
+                span[mode] = clock.span_ms[-1] / GRAPH_PROFILE_STEPS
+                by_kernel[mode] = {k: v / GRAPH_PROFILE_STEPS
+                                   for k, v in clock.kernel_ms[-1].items()}
+    finally:
+        clock.close()
+    # the first run fills a prefix cache that the later ones hit: their
+    # tokens are the same, their verify windows (and so launches) shorter
+    for r in runs[1:]:
+        for k in ("tokens", "verified", "n_acc"):
+            if r[k] != runs[0][k]:
+                fail(f"graphs {label}: the {r['mode']} run's {k} differ from the first run's")
+        if r["launches"] != runs[1]["launches"]:
+            fail(f"graphs {label}: the {r['mode']} run's launches differ from the eager run's: "
+                 f"{r['launches']} / {runs[1]['launches']}")
+    stats = engine.loops.stats()
+
+    def mean(mode, key):
+        vals = [r[key] for r in runs if r["mode"] == mode]
+        return sum(vals) / len(vals)
+
+    row = {"tier": engine.spec.name, "layers": engine.spec.n_layers,
+           "activations": str(engine.params["embed"].dtype), "batch": len(prompts),
+           "max_new": MAX_NEW, "loop_chunk": LOOP_CHUNK, "n_acc": runs[0]["n_acc"],
+           "runs": [{k: r[k] for k in ("mode", "generate_s", "loop_s", "verify_s")}
+                    for r in runs],
+           "launches": {"generate": runs[2]["launches"][0], "verify": runs[2]["launches"][1]},
+           "captures": stats["by_bucket"], "pool_bytes": stats["pool_bytes"]}
+    for mode in ("eager", "graphed"):
+        wall = mean(mode, "loop_s") * 1e3 / MAX_NEW
+        row[mode] = {"loop_ms_per_step": wall, "busy_ms_per_step": busy[mode],
+                     "profiled_ms_per_step": span[mode],
+                     "idle_share": 1.0 - busy[mode] / span[mode],
+                     "kernel_ms_per_step": by_kernel[mode],
+                     # one paged decode a layer a step
+                     "paged_decode_us_per_call": by_kernel[mode]["paged_decode"] * 1e3
+                     / engine.spec.n_layers,
+                     "generate_tokens_per_s": len(prompts) * MAX_NEW / mean(mode, "generate_s"),
+                     "verify_s": mean(mode, "verify_s")}
+    return row
+
+
+def phase_graphs(dev, tier0, int4_engines, tier0_w8a8) -> dict:
+    """The decode loops as captured CUDA graphs against the same loops run
+    without capture, in turn in this call: ``generate`` and
+    ``verify_continue`` on the 7B INT8, 14B INT4 and 32B INT4 tiers (bf16),
+    then the W8A8 scheduler's twelve requests through ``run_until_idle``.
+    Tokens, accepted counts and launch counts must be equal; the
+    scheduler's tokens must give SCHED_TOKENS_CRC. Returns the launch counts
+    of the graphed runs."""
+    rng = np.random.default_rng(2)
+    prompts = [[int(t) for t in rng.integers(1, tier0.spec.vocab_size, n)] for n in PROMPT_LENS]
+    total = {k: 0 for k in read_counters()}
+    for engine in (tier0, *int4_engines):
+        row = _graph_tier(engine, prompts)
+        for part in row["launches"].values():
+            for k, v in part.items():
+                total[k] += v
+        emit({"phase": "graphs", **row})
+
+    spec = tier0_w8a8.spec
+    rng = np.random.default_rng(8)
+    sched_prompts = [[int(t) for t in rng.integers(1, spec.vocab_size, n)]
+                     for n in SCHED_PROMPT_LENS]
+    runs = []
+    for mode in ("eager", "graphed"):
+        with _eager_loops(tier0_w8a8) if mode == "eager" else contextlib.nullcontext():
+            sched = ContinuousBatchingScheduler(tier0_w8a8, max_batch=SCHED_LANES,
+                                                max_context=SCHED_CONTEXT, scan_steps=SCHED_SCAN)
+            _require_native(sched, f"graphs scheduler {mode}")
+            reqs = [sched.submit(p, max_new=SCHED_MAX_NEW, request_id=f"smoke_graphs_{i}")
+                    for i, p in enumerate(sched_prompts)]
+            zero_counters()
+            _, secs = _call(sched.run_until_idle)
+            launches = read_counters()
+        if any(r.error is not None or len(r.out_tokens) != SCHED_MAX_NEW for r in reqs):
+            fail(f"graphs scheduler {mode}: a request failed or came back short")
+        toks = [r.out_tokens for r in reqs]
+        runs.append({"mode": mode, "seconds": secs, "tokens_per_s": sum(map(len, toks)) / secs,
+                     "steps": sched.steps, "tokens_crc32": zlib.crc32(json.dumps(toks).encode()),
+                     "launches": launches})
+    if runs[0]["launches"] != runs[1]["launches"]:
+        fail(f"graphs scheduler: launch counts differ: {runs[0]['launches']} / "
+             f"{runs[1]['launches']}")
+    if [r["tokens_crc32"] for r in runs] != [SCHED_TOKENS_CRC] * 2:
+        fail(f"graphs scheduler: tokens CRC {[r['tokens_crc32'] for r in runs]}, "
+             f"want {SCHED_TOKENS_CRC}")
+    for k, v in runs[1]["launches"].items():
+        total[k] += v
+    _require_launches("graphs", total, ("int8_matmul", "int4_matmul_grouped", "w8a8_matmul",
+                                        "paged_decode", "paged_window"))
+    emit({"phase": "graphs_scheduler", "tier": spec.name, "weights": "int8, act_quant (W8A8)",
+          "lanes": SCHED_LANES, "scan_steps": SCHED_SCAN, "runs": runs,
+          "loops": {k: v for k, v in tier0_w8a8.loops.stats().items() if k != "by_bucket"},
+          "captures": tier0_w8a8.loops.stats()["by_bucket"]})
+    return total
+
+
+
 def _error_metrics() -> list:
     return [ln for ln in global_metrics().export_metrics("prometheus").splitlines()
             if "errors_total" in ln and not ln.startswith("#") and float(ln.split()[-1]) > 0]
@@ -2166,7 +2390,8 @@ def phase_step(engines) -> None:
     """One decode step of each tier at the serve phase's batch and final
     context lengths: its kernel launches, its time on the card (CUDA events),
     and the device time by kernel from torch.profiler; the device idles for
-    the rest of the step (host work, launch gaps). Then the seconds one
+    the rest of the step (host work, launch gaps): the idle share compares
+    the profiled step's busy time with its own span (CUDA events). Then the seconds one
     512-token prompt takes to prefill, and that prefill's device time by
     kernel (the paged window kernel's share where the prefix cache is on)."""
     from torch.autograd import DeviceType
@@ -2202,19 +2427,32 @@ def phase_step(engines) -> None:
             end.synchronize()
             step_ms = start.elapsed_time(end) / reps
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                start.record()
                 step()
+                end.record()
                 torch.cuda.synchronize()
+            profiled_ms = start.elapsed_time(end)
         finally:
             for r in rids:
                 e.allocator.free_request(r)
         # one 512-token prompt through the engine's own prefill (the window
-        # path where the prefix cache is on), one token sampled: its seconds,
-        # then the same once more under the profiler for its kernels' shares
+        # path where the prefix cache is on), one token sampled and fetched:
+        # its seconds, then the same once more under the profiler for its
+        # kernels' shares
         rng = np.random.default_rng(int(zlib.crc32(e.spec.name.encode())))
-        fresh = [[int(t) for t in rng.integers(1, e.spec.vocab_size, 512)]]
-        _, prefill_s = _call(e.generate, fresh, max_new=1)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_pre:
-            _call(e.generate, fresh, max_new=1)
+        fresh = rng.integers(1, e.spec.vocab_size, (1, 512)).astype(np.int32)
+        rid = "smoke_step_prefill"
+        tables = np.asarray([e.allocator.alloc(rid, 512 // e.page_size + 1)], np.int32)
+        try:
+            if e.prefix_cache is not None:
+                args = (e.prefill_window_sample_batch, fresh, [0], [512], tables, [0.0], 0)
+            else:
+                args = (e.prefill_sample_batch, fresh, [512], tables, [0.0], 0)
+            _, prefill_s = _call(*args)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_pre:
+                _call(*args)
+        finally:
+            e.allocator.free_request(rid)
 
         def device_ms(p):
             ks = sorted(((ev.key, ev.self_device_time_total / 1e3) for ev in p.key_averages()
@@ -2232,10 +2470,11 @@ def phase_step(engines) -> None:
         emit({"phase": "step", "tier": e.spec.name, "weights": weights,
               "activations": str(e.params["embed"].dtype), "batch": B, "positions": pos,
               "launches": launches, "step_ms": step_ms, "device_busy_ms": busy,
+              "profiled_step_ms": profiled_ms,
               "kernel_ms": by_kernel, "prefill_512_tokens_s": prefill_s,
               "prefill_device_busy_ms": pre_busy, "prefill_kernel_ms": pre_by_kernel,
               "prefill_top_kernels_ms": [[k[:90], ms] for k, ms in pre_kernels[:6]],
-              "idle_share": None if busy is None else max(0.0, 1.0 - busy / step_ms),
+              "idle_share": None if busy is None else 1.0 - busy / profiled_ms,
               "top_kernels_ms": [[k[:90], ms] for k, ms in kernels[:8]]})
 
 
@@ -2628,6 +2867,7 @@ def main() -> int:
     paths["scheduled_pipeline"] = timed("scheduled_pipeline", phase_scheduled_pipeline, dev,
                                         tier0_w8a8, int4_engines)
     paths["routing"] = timed("routing", phase_routing, dev, tier0, int4_engines)
+    paths["graphs"] = timed("graphs", phase_graphs, dev, tier0, int4_engines, tier0_w8a8)
     timed("step", phase_step, [*int4_engines, tier0_w8a8])
     # the INT4 tiers once more with f32 activations, on the same weights
     timed("step", phase_step, [_twin(e, torch.float32) for e in int4_engines])

@@ -3,6 +3,10 @@ and the engine on the card against the engine on the CPU. Needs an NVIDIA
 GPU with nvcc; elsewhere every test skips. Run on the card with
 ``python -m pytest -m cuda tests/test_torch_cuda.py``."""
 
+import gc
+import threading
+import weakref
+
 import numpy as np
 import pytest
 import torch
@@ -743,3 +747,218 @@ def test_load_params_on_card_equals_quantize_model(cuda, bits, tmp_path):
         assert torch.equal(g_["input_norm"], params["layers"][li]["input_norm"])
     assert torch.equal(got["lm_head"].q, want["lm_head"].q)
     assert torch.equal(got["embed"], params["embed"])
+
+
+# ---------------------------------------------------------------------------
+# CUDA graphs of the decode loops (engine/graphs.py): a graphed engine against
+# the same engine without capture (``cuda_graphs=False``), bit for bit
+
+_COUNTERS = {"int8": MQ.int8_matmul_counter, "int4": MQ.int4_matmul_counter,
+             "int4g": MQ.int4g_matmul_counter, "w8a8": MQ.w8a8_matmul_counter,
+             "paged_decode": A.paged_decode_counter, "paged_window": A.paged_window_counter}
+
+
+def _counted(fn):
+    """(fn(), launches by kernel during the call)."""
+    before = {k: c.launches for k, c in _COUNTERS.items()}
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k: c.launches - before[k] for k, c in _COUNTERS.items()}
+
+
+def _graph_pair(cuda, seed=2, **kw):
+    """Two engines over the same TINY128 weights on the card: graphed, eager."""
+    params = _on_card(init_params_quantized(TINY128, seed, device="cpu", dtype=torch.float32),
+                      cuda)
+    return tuple(TierEngine(TINY128, params, device=cuda, page_size=128, n_pages=32,
+                            cuda_graphs=graphs, **kw) for graphs in (True, False))
+
+
+def _gen_rows(outs):
+    return [(o.token_ids.tolist(), o.logprobs.tobytes(),
+             None if o.topk_ids is None else (o.topk_ids.tobytes(), o.topk_probs.tobytes()))
+            for o in outs]
+
+
+@pytest.mark.parametrize("prefix_cache", [False, True])
+@pytest.mark.parametrize("temperature,topk", [(0.0, 0), (0.8, 4)])
+def test_graphed_generate_and_verify_equal_eager(cuda, prefix_cache, temperature, topk):
+    """``generate`` then ``verify_continue`` of its drafts (the exact
+    stochastic rule at T > 0), twice on each engine in turn (graphed,
+    eager, graphed, eager: the first graphed run captures, the second only
+    replays; over the prefix cache the second runs hit it): tokens,
+    logprobs, top-K supports, accepted counts and launch counts are equal,
+    with a lane stopping at eos."""
+    graphed, eager = _graph_pair(cuda, enable_prefix_cache=prefix_cache)
+    rng = np.random.default_rng(3)
+    prompts = [[int(t) for t in rng.integers(1, TINY128.vocab_size, n)] for n in (37, 150, 300)]
+    probe = eager.generate(prompts, max_new=24)
+    graphed.eos_id = eager.eos_id = int(probe[0].token_ids[5])
+    runs = {}
+    for i, eng in enumerate((graphed, eager, graphed, eager)):
+        kw = dict(max_new=24, temperature=temperature, seed=3 + i // 2, return_topk=topk)
+        outs, n_gen = _counted(lambda: eng.generate(prompts, **kw))
+        drafts = [o.token_ids[:10].tolist() for o in outs]
+        dq = ([(o.logprobs[:10], o.topk_ids[:10], o.topk_probs[:10]) for o in outs]
+              if topk else None)
+        ver, n_ver = _counted(lambda: eng.verify_continue(prompts, drafts, draft_q=dq, **kw))
+        runs.setdefault(i // 2, []).append(
+            (_gen_rows(outs), _gen_rows([o for o, _ in ver]), [n for _, n in ver], n_gen, n_ver))
+    for first, second in runs.values():
+        assert first == second
+    # generate and verify_continue share a bucket where their shapes agree
+    assert graphed.loops.stats()["captures"] >= 1 and graphed.loops.stats()["replays"] > 0
+    assert eager.loops.stats()["captures"] == 0
+    if temperature == 0.0:
+        assert min(len(r[0]) for r in runs[0][0][0]) < 24           # eos stopped a lane
+
+
+def test_graphed_scan_equals_eager(cuda):
+    """Chained carry scans and the host-array scan with a parked lane, a
+    lane that samples eos mid-scan, a T > 0 lane and top-K supports: tokens,
+    logprobs, emitted counts, supports, the carry and launch counts equal."""
+    graphed, eager = _graph_pair(cuda, seed=4)
+    rng = np.random.default_rng(4)
+    lens = np.array([37, 150, 300, 1], np.int32)
+    toks = np.zeros((4, 320), np.int32)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rng.integers(1, TINY128.vocab_size, n)
+    tables = np.full((4, 4), 32, np.int32)
+    for i in range(3):
+        tables[i] = np.arange(4 * i, 4 * i + 4)
+    temps = np.array([0.0, 0.9, 0.0, 0.0], np.float32)
+    tps = np.array([1.0, 0.8, 1.0, 1.0], np.float32)
+    rem = np.array([12, 12, 3, 0], np.int32)
+    first, _, _ = eager.prefill_sample_batch(toks, lens, tables, temps, 0, top_ps=tps)
+    probe = eager.decode_sample_scan(first, lens, tables, temps, 1, rem, n_steps=8, top_ps=tps)
+    eos = int(probe[0][0, 2])
+    got = {}
+    for name, eng in (("graphed", graphed), ("eager", eager)):
+        eng.eos_id = eos
+        eng.prefill_sample_batch(toks, lens, tables, temps, 0, top_ps=tps)
+        carry = eng.scan_carry_init(first, lens, rem, temps, tps, seed=7)
+        tdev = eng.tables_to_device(tables)
+        rounds = []
+        for _ in range(3):
+            (out, carry), n = _counted(lambda: eng.decode_sample_scan_carry(
+                carry, tdev, n_steps=4, return_topk=2))
+            rounds.append(([a.tobytes() for a in out[:3]], [q.tobytes() for q in out[3]], n,
+                           [carry[k].cpu().numpy().tobytes() for k in ("tok", "pos", "rem")]))
+        legacy, n = _counted(lambda: eng.decode_sample_scan(
+            first, lens, tables, temps, 5, rem, n_steps=8, return_topk=2, top_ps=tps))
+        rounds.append(([a.tobytes() for a in legacy[:3]], [q.tobytes() for q in legacy[3]], n))
+        got[name] = rounds
+    assert got["graphed"] == got["eager"]
+    assert graphed.loops.stats()["captures"] == 2
+    emitted = np.frombuffer(got["eager"][0][0][2], np.int32)
+    assert emitted[3] == 0 and emitted[2] == 3 and 0 < emitted[0] < 4   # parked, budget, eos
+
+
+def test_pipelined_scheduler_with_graphs_equals_unpipelined(cuda):
+    """The scheduler enqueues round N + 1 from the carry before it fetches
+    round N, whose outputs the next replay overwrites in the graph's static
+    buffers: pipelined with graphs, unpipelined with graphs and pipelined
+    without capture give the same tokens."""
+    from adaptive_sd_tpu_torch.engine import ContinuousBatchingScheduler
+
+    rng = np.random.default_rng(6)
+    prompts = [[int(t) for t in rng.integers(1, TINY128.vocab_size, n)]
+               for n in (37, 150, 300, 64, 90, 20)]
+    params = _on_card(init_params_quantized(TINY128, 6, device="cpu", dtype=torch.float32),
+                      cuda)
+    outs = {}
+    for graphs, pipelined in ((True, True), (True, False), (False, True)):
+        eng = TierEngine(TINY128, params, device=cuda, page_size=128, n_pages=32,
+                         cuda_graphs=graphs)
+        sched = ContinuousBatchingScheduler(eng, max_batch=4, max_context=512, scan_steps=4,
+                                            pipeline_scans=pipelined)
+        reqs = [sched.submit(p, max_new=40 + 3 * i) for i, p in enumerate(prompts)]
+        sched.run_until_idle()
+        assert all(r.done and r.error is None for r in reqs)
+        outs[graphs, pipelined] = [(r.out_tokens, r.out_logprobs) for r in reqs]
+        assert (eng.loops.stats()["replays"] > 0) == graphs
+    assert outs[True, True] == outs[True, False] == outs[False, True]
+
+
+def test_capture_failure_raises(cuda, monkeypatch):
+    """A host read inside the captured steps fails the capture, and the
+    error reaches the caller: no eager fallback. Without it the same
+    bucket captures and runs."""
+    graphed, _ = _graph_pair(cuda)
+    real = D.decode_step
+
+    def reading(*a, **k):
+        out = real(*a, **k)
+        float(out[0].sum())
+        return out
+
+    monkeypatch.setattr(D, "decode_step", reading)
+    with pytest.raises(RuntimeError):
+        graphed.generate([[1, 2, 3]], max_new=8)
+    assert graphed.loops.stats()["captures"] == 0
+    monkeypatch.setattr(D, "decode_step", real)
+    out = graphed.generate([[1, 2, 3]], max_new=8)
+    assert out[0].num_tokens == 8 and graphed.loops.stats()["captures"] == 1
+
+
+def test_capture_survives_a_collection_of_dead_graphs(cuda, monkeypatch):
+    """A dead engine's graphs, freed by a cyclic garbage collection while
+    another engine captures, would invalidate that capture: no collection
+    runs inside one, and the capture gives the eager tokens."""
+    held = [_graph_pair(cuda)[0]]
+    held[0].generate([[1, 2, 3]], max_new=8)
+    assert held[0].loops.stats()["captures"] == 1
+    ref = weakref.ref(held[0])
+    graphed, eager = _graph_pair(cuda, seed=3)
+    real = D.decode_step
+
+    def collecting(*a, **k):
+        if held and torch.cuda.is_current_stream_capturing():
+            held.clear()
+            assert ref() is not None       # a reference cycle holds it (its buckets)
+            if gc.isenabled():
+                gc.collect()
+        return real(*a, **k)
+
+    monkeypatch.setattr(D, "decode_step", collecting)
+    got = graphed.generate([[4, 5, 6]], max_new=8)
+    want = eager.generate([[4, 5, 6]], max_new=8)
+    assert not held and graphed.loops.stats()["captures"] == 1
+    assert got[0].token_ids.tolist() == want[0].token_ids.tolist()
+    gc.collect()
+    assert ref() is None
+
+
+@pytest.mark.parametrize("graphs", [True, False])
+def test_concurrent_generates_and_verifies_equal_one_at_a_time(cuda, graphs):
+    """Calls of one shape share a loop bucket's state (and, graphed, its
+    generator): four threads calling ``generate`` and ``verify_continue``
+    at once on one engine get what each gets alone, bit for bit."""
+    engine = _graph_pair(cuda, seed=5)[0 if graphs else 1]
+    rng = np.random.default_rng(5)
+    prompts = [[[int(t) for t in rng.integers(1, TINY128.vocab_size, n)] for n in (37, 150)]
+               for _ in range(4)]
+    drafts = [[o.token_ids[:6].tolist() for o in engine.generate(p, max_new=8)]
+              for p in prompts]
+
+    def call(i):
+        outs = engine.generate(prompts[i], max_new=24, temperature=0.8, seed=i)
+        ver = engine.verify_continue(prompts[i], drafts[i], max_new=24, temperature=0.8,
+                                     seed=i)
+        return _gen_rows(outs), _gen_rows([o for o, _ in ver]), [n for _, n in ver]
+
+    alone = [call(i) for i in range(4)]
+    got = [None] * 4
+    start = threading.Barrier(4)
+
+    def run(i):
+        start.wait()
+        got[i] = call(i)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert got == alone
+    assert (engine.loops.stats()["replays"] > 0) == graphs
