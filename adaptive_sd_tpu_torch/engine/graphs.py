@@ -144,7 +144,9 @@ class LoopBucket:
         cur.wait_stream(s)
         for k, v in saved.items():
             self.state[k].copy_(v)
-        torch.cuda.synchronize(loops.device)
+        # this stream only: a device-wide synchronize fails while another
+        # thread captures (another engine's bucket, e.g. tiers warming at once)
+        cur.synchronize()
         self.graph = graph
         self.launches = rec
         self.pool_bytes = torch.cuda.memory_reserved(loops.device) - reserved

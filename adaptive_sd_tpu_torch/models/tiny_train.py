@@ -143,11 +143,13 @@ def encode_qa(
 # training forward (same param layout the production engine consumes)
 
 
-def lm_forward(params: Params, spec: ModelSpec, tokens: torch.Tensor) -> torch.Tensor:
+def lm_forward(params: Params, spec: ModelSpec, tokens: torch.Tensor,
+               mask_pad: bool = True) -> torch.Tensor:
     """[B, S] -> logits [B, S, V]. Differentiable training twin of the
     engine's prefill (models/qwen.prefill): padding columns receive no
-    attention (fill -1e30), K/V heads are repeated for GQA, the head is the
-    embedding's transpose when tied."""
+    attention (fill -1e30; ``mask_pad=False`` treats the PAD id as a token,
+    for corpora that are not the char tokenizer's), K/V heads are repeated
+    for GQA, the head is the embedding's transpose when tied."""
     B, S = tokens.shape
     sm_scale = 1.0 / math.sqrt(spec.head_dim)
     tokens = tokens.long()
@@ -157,7 +159,7 @@ def lm_forward(params: Params, spec: ModelSpec, tokens: torch.Tensor) -> torch.T
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     causal = torch.tril(torch.ones((S, S), dtype=torch.bool, device=tokens.device))
     # padding columns must not receive attention
-    pad_ok = tokens != CharTokenizer.PAD
+    pad_ok = tokens != (CharTokenizer.PAD if mask_pad else -1)
     mask = causal[None] & pad_ok[:, None, :]
     rep = spec.n_heads // spec.n_kv_heads
     for layer in params["layers"]:
@@ -223,6 +225,7 @@ def train_lm(
     progress: Optional[Callable[[str], None]] = None,
     device=None,
     init: Optional[Params] = None,
+    mask_pad: bool = True,
 ) -> tuple[Params, dict]:
     """AdamW + warmup-cosine training of the masked next-token loss on
     ``device`` (default CUDA); returns (float32 params, report). Rows are
@@ -231,7 +234,7 @@ def train_lm(
     keys plus ``step_losses``, the loss of every step (unrounded).
     ``init``: the initial weights (copied; default ``init_params(spec,
     seed)`` on ``device``), e.g. another device's, or another package's
-    handed across."""
+    handed across. ``mask_pad``: as :func:`lm_forward` takes it."""
     device = resolve_device(device)
     params = init if init is not None else init_params(spec, seed, torch.float32, device=device)
     params = _map(params, lambda t: t.to(device=device, dtype=torch.float32)
@@ -242,7 +245,7 @@ def train_lm(
                             weight_decay=weight_decay)
 
     def loss_fn(toks, msk):
-        logits = lm_forward(params, spec, toks[:, :-1])
+        logits = lm_forward(params, spec, toks[:, :-1], mask_pad)
         tgt = toks[:, 1:].long()
         m = msk[:, 1:]
         lp = torch.log_softmax(logits, dim=-1)

@@ -89,6 +89,18 @@ def quantize_int4(w: torch.Tensor, axis: int = 0, group_size=None) -> QuantizedT
     return QuantizedTensor(q=pack_int4(q), scale=scale[:, 0, :].float(), bits=4)
 
 
+def dequantize(t: QuantizedTensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """The weight a :class:`QuantizedTensor` stands for: int8 or unpacked
+    int4 values times their per-column (or per-group) scales, in f32, then
+    cast to ``dtype``."""
+    q = (t.q if t.bits == 8 else unpack_int4(t.q)).to(torch.float32)
+    if t.scale.ndim == 2:  # group-wise [K/gs, N]
+        K, N = q.shape
+        gs = K // t.scale.shape[0]
+        return (q.reshape(-1, gs, N) * t.scale[:, None, :]).reshape(K, N).to(dtype)
+    return (q * t.scale[None, :]).to(dtype)
+
+
 def quantize_kv_int8(kv: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-(…, head) symmetric INT8 for KV entries: ``kv`` [..., head_dim]
     -> (q int8 same shape, scale float32 [...])."""

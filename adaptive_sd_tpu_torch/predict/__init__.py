@@ -1,5 +1,5 @@
 """Quality prediction: host features, the MLP predictor and its training,
-the inline head, training data."""
+the ensemble predictor, the inline head, training data."""
 
 from .data import (
     TrainingSample,
@@ -10,6 +10,7 @@ from .data import (
     save_samples,
 )
 from .embed import EMBED_LEN, EMBED_VOCAB, hash_batch, hash_indices
+from .ensemble import EnsembleQualityPredictor, ensemble_from_jax
 from .features import FEATURE_DIM, extract_batch, extract_features
 from .inline import (
     INLINE_DIM,

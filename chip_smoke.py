@@ -190,6 +190,7 @@ from adaptive_sd_tpu_torch.models.qwen import fuse_projections, quantize_model
 from adaptive_sd_tpu_torch.policy.dp import optimal_stopping_rule
 from adaptive_sd_tpu_torch.predict import (
     INLINE_SLICE,
+    EnsembleQualityPredictor,
     MLPQualityPredictor,
     extract_features,
     generate_from_engines,
@@ -250,12 +251,26 @@ CKPT_PROMPT_LENS = (37, 150, 300)
 # TF32 off: sums in another order)
 REHEARSAL_CHECK_STEPS = 20
 TRAIN_TOL = 1e-3
+# torch._int_mm takes M > 16 only: the W8A8 library yardstick pads decode rows
+INT_MM_PAD_ROWS = 32
+# the ensemble phase: the MLP member's validation R^2, card against CPU (the
+# trees and Ridge are host code and must be equal bit for bit)
+ENSEMBLE_R2_TOL = 0.02
+# the lambda of each routed request: the larger ones stop at the 7B tier, the
+# smaller ones escalate to the INT4 tiers
+ENSEMBLE_LAMBDAS = (1.0, 0.3, 0.1, 0.03)
+# the load phase: scripts/torch_load_bench.py --real-widths with both passes
+# cut to LOAD_N requests at LOAD_RATE req/s and the predictor's draft set to
+# LOAD_N_TRAIN workload items (the script's defaults: 24, 4, 96)
+LOAD_N = 12
+LOAD_RATE = 4.0
+LOAD_N_TRAIN = 16
 
 
-def _load_rehearsal_script():
-    """scripts/torch_real_smoke.py as a module (scripts/ is no package)."""
-    path = pathlib.Path(__file__).resolve().parent / "scripts" / "torch_real_smoke.py"
-    spec = importlib.util.spec_from_file_location("torch_real_smoke", path)
+def _load_script(name: str = "torch_real_smoke"):
+    """scripts/<name>.py as a module (scripts/ is no package)."""
+    path = pathlib.Path(__file__).resolve().parent / "scripts" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -265,8 +280,7 @@ SCHED_SCAN = 8
 SCHED_MAX_NEW = 160
 SCHED_CONTEXT = 1024
 SCHED_PROMPT_LENS = (40, 110, 500, 230, 360, 75, 490, 240, 120, 370, 100, 450)
-# Decode steps of the graphs phase's profiled generate loops (torch.profiler
-# over an eager 32B loop takes minutes; the device time a step is the same)
+# Decode steps of the graphs phase's profiled (graphed) generate loop
 GRAPH_PROFILE_STEPS = 8
 # CRC-32 of the W8A8 scheduler's tokens for these prompts and seeds (a greedy
 # walk whose lanes do not depend on their batch-mates), measured on an NVIDIA
@@ -532,7 +546,7 @@ def phase_kernels(dev, rates, timer) -> dict:
     # and ragged shapes. The kernel must EQUAL its plain version (int32 sums
     # are exact). Bound: bytes at small M, INT8 tensor-core operations above.
     # Library yardstick: the same function from PyTorch calls around
-    # torch._int_mm, where it takes the shape (it refuses M <= 16).
+    # torch._int_mm (at M <= 16, which it refuses, on rows zero-padded to 32).
     def w8a8_case(label, M, K, N, dtype, reps=None):
         esize = torch.empty((), dtype=dtype).element_size()
         q = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
@@ -545,7 +559,8 @@ def phase_kernels(dev, rates, timer) -> dict:
               fn_k=lambda: MQ.int8x8_matmul_cuda(x, q, scale),
               fn_p=lambda: MQ.quantized_matmul_w8a8_ref(x, q, scale),
               fn_lib=_int_mm_call(x, q, scale), reps=reps, ops_dtype=torch.int8,
-              variant=_variant(label, M))
+              variant=_variant(label, M),
+              library=f"torch._int_mm on rows padded to {INT_MM_PAD_ROWS}" if M <= 16 else None)
         del q, x, out, ref
         torch.cuda.empty_cache()
 
@@ -631,7 +646,7 @@ def phase_kernels(dev, rates, timer) -> dict:
     layouts = [(m, *heads(get_spec(m)), dt, True)
                for m, dt in zip(DEFAULT_CASCADE[:2], TIER_DTYPES)]
     vocab = tiny_train.CharTokenizer().vocab_size
-    for kw in _load_rehearsal_script().REHEARSAL_RECIPES[:2]:  # head dims 48, 40
+    for kw in _load_script().REHEARSAL_RECIPES[:2]:  # head dims 48, 40
         layouts.append((kw["name"], *heads(tiny_train.TierRecipe(**kw).spec(vocab)),
                         torch.bfloat16, False))
     for model, n_kv, G, D, dtype, full in layouts:
@@ -836,14 +851,18 @@ def _int4_dequant_call(x, q, scale):
 def _int_mm_call(x, q, scale):
     """W8A8 from PyTorch calls (row quantisation, torch._int_mm, the two
     scales) as the library yardstick, where this build's _int_mm takes the
-    shape."""
+    shape. torch._int_mm refuses M <= 16: there the quantised rows are
+    zero-padded to INT_MM_PAD_ROWS first, and the pad counts in the time."""
     fn = getattr(torch, "_int_mm", None)
     if fn is None:
         return None
+    M = x.shape[0]
 
     def call():
         xq, xs = MQ.quantize_rows_int8(x)
-        return (fn(xq, q).float() * xs * scale[None, :]).to(x.dtype)
+        if M <= 16:
+            xq = torch.nn.functional.pad(xq, (0, 0, 0, INT_MM_PAD_ROWS - M))
+        return (fn(xq, q)[:M].float() * xs * scale[None, :]).to(x.dtype)
 
     try:
         call()
@@ -1730,7 +1749,8 @@ def phase_routing(dev, tier0, int4_engines) -> dict:
     tier 0, the quality-gate controller closing the loop on lambda, cost
     calibration, a lambda sweep scored by the suites' own scorers, and the
     evaluation walk against the oracles. Every decision is recomputed on the
-    host. Returns the launch counts of the run."""
+    host. Returns the launch counts of the run and the engine rows' features
+    and labels."""
     engines = [tier0, *int4_engines]
     n = len(engines)
     vocab = engines[0].spec.vocab_size
@@ -1911,7 +1931,9 @@ def phase_routing(dev, tier0, int4_engines) -> dict:
           "max_memory_allocated": torch.cuda.max_memory_allocated()})
     _require_launches("routing", launches,
                       ("int8_matmul", "int4_matmul_grouped", "paged_decode", "paged_window"))
-    return launches
+    engine_rows = (np.asarray([s.features for s in samples], np.float64),
+                   np.asarray([s.label for s in samples], np.float64))
+    return launches, engine_rows
 
 
 def _pipeline_row(kind, pipe, req, res, secs, vocab, inline_head, lam=None,
@@ -2251,18 +2273,20 @@ class _LoopClock:
 def _graph_tier(engine, prompts) -> dict:
     """``generate`` and ``verify_continue`` (of the first half of its own
     greedy output, so that the continue loop runs) on one tier, without
-    capture and graphed in turn: eager, graphed, graphed, eager, after one
-    graphed run that captures. Tokens, accepted counts and launch counts
-    must be equal. The generate loop's time a step (its LOOP_CHUNK-step
-    runs, host clock, batch 4), its device busy time and its span on the
-    card (one more profiled loop of GRAPH_PROFILE_STEPS steps a mode) and
-    the idle share of that profiled loop; capture
-    seconds and pool bytes of the tier's graphs."""
+    capture and graphed: eager, graphed, after one graphed run that
+    captures. Tokens, accepted counts and launch counts must be equal. The
+    generate loop's time a step (its LOOP_CHUNK-step runs, host clock, batch
+    4); graphed, also its device busy time and its span on the card (one
+    more profiled loop of GRAPH_PROFILE_STEPS steps) and the idle share of
+    that profiled loop; capture seconds and pool bytes of the tier's graphs.
+    The eager loop is run once and not profiled: its host-bound busy time
+    does not change with the graphs, and profiling it took most of the
+    phase's time."""
     label = f"{engine.spec.name} {engine.params['embed'].dtype}"
     clock = _LoopClock(engine)
     runs = []
     try:
-        for mode in ("capture", "eager", "graphed", "graphed", "eager"):
+        for mode in ("capture", "eager", "graphed"):
             with _eager_loops(engine) if mode == "eager" else contextlib.nullcontext():
                 zero_counters()
                 own, t_gen = _call(engine.generate, prompts, max_new=MAX_NEW)
@@ -2277,15 +2301,11 @@ def _graph_tier(engine, prompts) -> dict:
                          "verify_s": t_ver, "tokens": [o.token_ids.tolist() for o in own],
                          "verified": [o.token_ids.tolist() for o, _ in ver],
                          "n_acc": [n for _, n in ver], "launches": (n_gen, n_ver)})
-        busy, span, by_kernel = {}, {}, {}
-        for mode in ("eager", "graphed"):
-            with _eager_loops(engine) if mode == "eager" else contextlib.nullcontext():
-                clock.profiled = True
-                _call(engine.generate, prompts, max_new=GRAPH_PROFILE_STEPS)
-                busy[mode] = clock.busy_ms[-1] / GRAPH_PROFILE_STEPS
-                span[mode] = clock.span_ms[-1] / GRAPH_PROFILE_STEPS
-                by_kernel[mode] = {k: v / GRAPH_PROFILE_STEPS
-                                   for k, v in clock.kernel_ms[-1].items()}
+        clock.profiled = True
+        _call(engine.generate, prompts, max_new=GRAPH_PROFILE_STEPS)
+        busy = clock.busy_ms[-1] / GRAPH_PROFILE_STEPS
+        span = clock.span_ms[-1] / GRAPH_PROFILE_STEPS
+        by_kernel = {k: v / GRAPH_PROFILE_STEPS for k, v in clock.kernel_ms[-1].items()}
     finally:
         clock.close()
     # the first run fills a prefix cache that the later ones hit: their
@@ -2311,16 +2331,14 @@ def _graph_tier(engine, prompts) -> dict:
            "launches": {"generate": runs[2]["launches"][0], "verify": runs[2]["launches"][1]},
            "captures": stats["by_bucket"], "pool_bytes": stats["pool_bytes"]}
     for mode in ("eager", "graphed"):
-        wall = mean(mode, "loop_s") * 1e3 / MAX_NEW
-        row[mode] = {"loop_ms_per_step": wall, "busy_ms_per_step": busy[mode],
-                     "profiled_ms_per_step": span[mode],
-                     "idle_share": 1.0 - busy[mode] / span[mode],
-                     "kernel_ms_per_step": by_kernel[mode],
-                     # one paged decode a layer a step
-                     "paged_decode_us_per_call": by_kernel[mode]["paged_decode"] * 1e3
-                     / engine.spec.n_layers,
+        row[mode] = {"loop_ms_per_step": mean(mode, "loop_s") * 1e3 / MAX_NEW,
                      "generate_tokens_per_s": len(prompts) * MAX_NEW / mean(mode, "generate_s"),
                      "verify_s": mean(mode, "verify_s")}
+    row["graphed"].update({"busy_ms_per_step": busy, "profiled_ms_per_step": span,
+                           "idle_share": 1.0 - busy / span, "kernel_ms_per_step": by_kernel,
+                           # one paged decode a layer a step
+                           "paged_decode_us_per_call": by_kernel["paged_decode"] * 1e3
+                           / engine.spec.n_layers})
     return row
 
 
@@ -2755,7 +2773,7 @@ def phase_rehearsal(dev) -> dict:
     """scripts/torch_real_smoke.py's trained rehearsal on the card, after the
     card-against-CPU check of the first tier's loss curve; one request is
     traced. Returns the launch counts of the rehearsal's run."""
-    smoke = _load_rehearsal_script()
+    smoke = _load_script()
     items = [it for name in ("factual-qa", "gsm-style") for it in load_frozen(name)]
     tokz = tiny_train.CharTokenizer()
     toks, mask = tiny_train.encode_qa(tokz, tiny_train.qa_corpus(items), smoke.REHEARSAL_SEQ_LEN)
@@ -2820,6 +2838,125 @@ def phase_rehearsal(dev) -> dict:
     return launches
 
 
+def _same_arrays(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(np.array_equal(a[k], b[k], equal_nan=True) for k in a)
+
+
+def _member_arrays(e) -> dict:
+    """The ensemble's host-fitted members as flat arrays: both tree
+    ensembles, Ridge, and every member's scaler."""
+    out = {f"{m}.{k}": v for m in ("random_forest", "gbm")
+           for k, v in e.members[m].arrays().items()}
+    out["ridge.coef"] = e.members["ridge"].coef
+    out["ridge.intercept"] = np.asarray(e.members["ridge"].intercept)
+    for m, sc in e.scalers.items():
+        out[f"{m}.scaler"] = np.stack([sc.mean, sc.scale])
+    return out
+
+
+def phase_ensemble(dev, tier0, int4_engines, engine_rows) -> dict:
+    """The ensemble predictor (predict/ensemble.py) fitted on the routing
+    phase's engine-draft rows with its MLP member on the card, against the
+    same fit with the MLP member on the CPU (trees and Ridge are host code:
+    equal bit for bit; the MLP member's validation R^2 within
+    ENSEMBLE_R2_TOL); the .npz round trip; then an AdaptiveCascadePipeline
+    over the routing phase's engines routes one request at each of
+    ENSEMBLE_LAMBDAS on it, every decision recomputed on the host. Returns the launch counts of the
+    routed requests."""
+    X, y = engine_rows
+    engines = [tier0, *int4_engines]
+    n = len(engines)
+    fits = {}
+    for where, device in (("card", dev), ("cpu", "cpu")):
+        e = EnsembleQualityPredictor(n_stages=n, seed=0)
+        scores, secs = _call(e.fit, X, y, device=device)
+        fits[where] = (e, scores, secs)
+    card, cpu = fits["card"][0], fits["cpu"][0]
+    same_host = _same_arrays(_member_arrays(card), _member_arrays(cpu))
+    d_mlp = abs(fits["card"][1]["mlp"] - fits["cpu"][1]["mlp"])
+    with tempfile.TemporaryDirectory() as tmp:
+        card.save(f"{tmp}/ensemble.npz")
+        back = EnsembleQualityPredictor.load(f"{tmp}/ensemble.npz")
+    (m1, s1), (m2, s2) = card.predict_features(X), back.predict_features(X)
+    line = {"phase": "ensemble", "rows": int(len(X)), "label_mean": float(y.mean()),
+            "member_r2_card": fits["card"][1], "member_r2_cpu": fits["cpu"][1],
+            "weights": card.weights, "fit_s_card": fits["card"][2], "fit_s_cpu": fits["cpu"][2],
+            "host_members_equal": same_host, "mlp_r2_diff": d_mlp, "tol": ENSEMBLE_R2_TOL,
+            "npz_round_trip_equal": bool(np.array_equal(m1, m2) and np.array_equal(s1, s2)),
+            "feature_importance_top": np.argsort(card.feature_importance())[::-1][:8].tolist()}
+    if not same_host:
+        fail("ensemble: the trees or Ridge of the card's fit differ from the CPU's")
+    if not d_mlp <= ENSEMBLE_R2_TOL:
+        fail(f"ensemble: the MLP member's R^2 on the card is {d_mlp} from the CPU's")
+    if not line["npz_round_trip_equal"]:
+        fail("ensemble: save -> load changed the predictions")
+
+    vocab = tier0.spec.vocab_size
+    tokenize = _tokenize(vocab)
+    stages = StageManager([EngineTextStage(e, tokenize, _detokenize, name=e.spec.name,
+                                           cost_per_token=PIPE_COSTS[i], stage_index=i)
+                           for i, e in enumerate(engines)])
+    pipe = AdaptiveCascadePipeline(stages, card, PipelineConfig(
+        direct_entry=False, enable_caching=False, max_new_tokens=ROUTE_MAX_NEW,
+        prior_quality=PIPE_PRIORS))
+    asked = [it["prompt"] for it in load_frozen("gsm-style")[-len(ENSEMBLE_LAMBDAS):]]
+    zero_counters()
+    rows = []
+    for i, (text, lam) in enumerate(zip(asked, ENSEMBLE_LAMBDAS)):
+        req = RequestContext(prompt=text, max_tokens=ROUTE_MAX_NEW, lambda_override=lam,
+                             request_id=f"smoke_ensemble_{i}")
+        res, secs = _call(pipe.process_request, req)
+        rows.append(_pipeline_row("ensemble", pipe, req, res, secs, vocab, None,
+                                  max_new=ROUTE_MAX_NEW))
+    pipe.shutdown()
+    launches = read_counters()
+    errors = _error_metrics()
+    if errors:
+        fail(f"ensemble: a stage or a request failed: {errors}")
+    emit({**line, "lambdas": list(ENSEMBLE_LAMBDAS), "stages": [r["stages"] for r in rows],
+          "uncertainty": [float(card.predict(t, "", None, 0).uncertainty) for t in asked],
+          "launches": launches})
+    _require_launches("ensemble", launches, ("int8_matmul", "int4_matmul_grouped",
+                                             "paged_decode", "paged_window"))
+    return launches
+
+
+def phase_load(dev) -> dict:
+    """scripts/torch_load_bench.py --real-widths through its ``run``: Poisson
+    arrivals against the scheduled cascade over Qwen2.5-7B / 32B / 72B widths
+    at depths 2 / 5 / 8, prefetch off then on, both passes cut to LOAD_N
+    requests at LOAD_RATE req/s and the predictor's drafts to LOAD_N_TRAIN
+    items. Every request must finish with no error, every bucket the passes
+    used must have been warmed, and nothing may be preempted. Returns the
+    launch counts of the run (warm-up included)."""
+    bench = _load_script("torch_load_bench")
+    with tempfile.TemporaryDirectory(prefix="asd_load_") as tmp:
+        args = bench.parse_args(["--real-widths", "--n", str(LOAD_N), "--rate", str(LOAD_RATE),
+                                 "--n-train", str(LOAD_N_TRAIN), "--device", str(dev),
+                                 "--out", f"{tmp}/loadbench.json"])
+        zero_counters()
+        report, secs = _call(bench.run, args, progress=lambda m: None)
+        launches = read_counters()
+    keep = ("prefetch", "achieved_rps", "serving_tokens_per_s", "latency_p50_s",
+            "latency_p95_s", "latency_p99_s", "stage_distribution", "preemptions", "errors",
+            "prefetches", "cold_graph_buckets", "wall_s", "dispatch_share_per_tier",
+            "admission_share_per_tier")
+    emit({"phase": "load", "seconds": secs, "tiers": report["tiers"],
+          "cut": {"n": [LOAD_N, 24], "rate": [LOAD_RATE, 4.0], "n_train": [LOAD_N_TRAIN, 96]},
+          "measured_cost_ratios": report["measured_cost_ratios"],
+          "predictor_val_auc": report["predictor_val_auc"],
+          "passes": [{k: p[k] for k in keep} for p in report["passes"]],
+          "launches": launches, "max_memory_allocated": torch.cuda.max_memory_allocated()})
+    for p in report["passes"]:
+        if p["errors"] or p["cold_graph_buckets"] or p["preemptions"]:
+            fail(f"load prefetch={p['prefetch']}: errors {p['errors']}, cold buckets "
+                 f"{p['cold_graph_buckets']}, preemptions {p['preemptions']}")
+    _require_launches("load", launches, ("int8_matmul", "paged_decode", "paged_window"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; refusing to run", file=sys.stderr)
@@ -2866,7 +3003,8 @@ def main() -> int:
     paths["pipeline"], int4_engines = timed("pipeline", phase_pipeline, dev, tier0)
     paths["scheduled_pipeline"] = timed("scheduled_pipeline", phase_scheduled_pipeline, dev,
                                         tier0_w8a8, int4_engines)
-    paths["routing"] = timed("routing", phase_routing, dev, tier0, int4_engines)
+    paths["routing"], engine_rows = timed("routing", phase_routing, dev, tier0, int4_engines)
+    paths["ensemble"] = timed("ensemble", phase_ensemble, dev, tier0, int4_engines, engine_rows)
     paths["graphs"] = timed("graphs", phase_graphs, dev, tier0, int4_engines, tier0_w8a8)
     timed("step", phase_step, [*int4_engines, tier0_w8a8])
     # the INT4 tiers once more with f32 activations, on the same weights
@@ -2875,6 +3013,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     paths["rehearsal"] = timed("rehearsal", phase_rehearsal, dev)
+    paths["load"] = timed("load", phase_load, dev)
     timed("path_shapes", phase_path_shapes, dev)
     emit({"phase": "wall", "seconds_by_phase": walls, "seconds": sum(walls.values())})
 

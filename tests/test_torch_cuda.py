@@ -929,6 +929,41 @@ def test_capture_survives_a_collection_of_dead_graphs(cuda, monkeypatch):
     assert ref() is None
 
 
+def test_engines_capture_concurrently(cuda):
+    """Three engines capturing their buckets in three threads at once (tiers
+    warming together, as ScheduledCascadePipeline.warmup does): no capture
+    fails, and each engine gives what the same calls give without graphs."""
+    engines = [_graph_pair(cuda, seed=s) for s in (11, 12, 13)]
+    rng = np.random.default_rng(11)
+    prompts = [[int(t) for t in rng.integers(1, TINY128.vocab_size, n)] for n in (37, 150)]
+    budgets = (8, 40, 72, 104)  # 32, 64, 96, 128 steps: a new bucket (and capture) each call
+
+    def calls(engine):
+        return [_gen_rows(engine.generate(prompts, max_new=m)) for m in budgets]
+
+    want = [calls(eager) for _, eager in engines]
+    got = [None] * 3
+    errors = []
+    start = threading.Barrier(3)
+
+    def run(i):
+        start.wait()
+        try:
+            got[i] = calls(engines[i][0])
+        except Exception as exc:  # noqa: BLE001 - reported below
+            errors.append(repr(exc))
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(3)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not any(t.is_alive() for t in threads)
+    assert errors == []
+    assert got == want
+    assert all(g.loops.stats()["captures"] >= len(budgets) for g, _ in engines)
+
+
 @pytest.mark.parametrize("graphs", [True, False])
 def test_concurrent_generates_and_verifies_equal_one_at_a_time(cuda, graphs):
     """Calls of one shape share a loop bucket's state (and, graphed, its

@@ -1,5 +1,5 @@
 """Import and device guards of the PyTorch port: it, chip_smoke.py and
-scripts/torch_real_smoke.py import neither jax nor adaptive_sd_tpu, nor a
+the scripts/torch_*.py twins import neither jax nor adaptive_sd_tpu, nor a
 package the card's machine lacks (safetensors, optax, sklearn,
 transformers, yaml; and chip_smoke.py neither aiohttp nor pydantic), its
 entry points never fall back to the CPU on their own, and a tensor that is
@@ -28,8 +28,10 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_smoke
-spec = importlib.util.spec_from_file_location("torch_real_smoke", "scripts/torch_real_smoke.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+for script in ("torch_real_smoke", "torch_train_predictor", "torch_int4_agreement_probe",
+               "torch_trained_cascade_eval", "torch_load_bench", "torch_sched_bench"):
+    spec = importlib.util.spec_from_file_location(script, f"scripts/{script}.py")
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 absent = ("jax", "adaptive_sd_tpu", "safetensors", "optax", "sklearn", "transformers", "yaml")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in absent)
 missing = sorted({"adaptive_sd_tpu_torch.engine.scheduler", "adaptive_sd_tpu_torch.cascade.scheduled",
@@ -41,6 +43,7 @@ missing = sorted({"adaptive_sd_tpu_torch.engine.scheduler", "adaptive_sd_tpu_tor
                   "adaptive_sd_tpu_torch.utils.profiler",
                   "adaptive_sd_tpu_torch.utils.validation",
                   "adaptive_sd_tpu_torch.serve.__main__", "adaptive_sd_tpu_torch.predict.data",
+                  "adaptive_sd_tpu_torch.predict.ensemble",
                   "adaptive_sd_tpu_torch.cascade.cost_optimizer",
                   "adaptive_sd_tpu_torch.cascade.calibration", "adaptive_sd_tpu_torch.cascade.router",
                   "adaptive_sd_tpu_torch.policy.regret", "adaptive_sd_tpu_torch.policy.lambda_opt",
@@ -66,7 +69,7 @@ def test_port_and_chip_smoke_import_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 66
+    assert int(n_modules) >= 69
     assert bad.strip() == "[]"
 
 
@@ -190,6 +193,21 @@ def test_rehearsal_script_raises_without_cuda(tmp_path):
                          env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and "CUDA" in out.stderr
     assert not (tmp_path / "r.json").exists()
+
+
+@pytest.mark.parametrize("script", ["torch_train_predictor", "torch_int4_agreement_probe",
+                                    "torch_trained_cascade_eval", "torch_load_bench",
+                                    "torch_sched_bench"])
+def test_measuring_scripts_raise_without_cuda(tmp_path, script):
+    """Each measuring twin runs on the card by default: with no card it exits
+    non-zero before it trains, builds or writes anything."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run([sys.executable, str(REPO / "scripts" / f"{script}.py"), "--out",
+                          str(tmp_path / "r.json")], cwd=tmp_path, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0 and "CUDA" in out.stderr
+    assert list(tmp_path.iterdir()) == []
 
 
 def test_engine_refuses_params_on_another_device():

@@ -59,10 +59,96 @@ def _both(pair, submissions, **kw):
     return out
 
 
-def _same_requests(jreqs, treqs):
+def _f64_logprobs(params, spec, prompt, out_tokens) -> np.ndarray:
+    """The greedy logprob of every output token recomputed in f64 from the
+    same INT8 weights (dequantised exactly) and the same K/V rule: the prompt
+    attends to its exact K/V, as the prefill does; each later position
+    attends to K/V passed through ``quantize_kv_int8``'s rounding, in f64.
+    A lane that was preempted and re-prefilled attended exactly once more at
+    its re-admission step, which this reference does not follow."""
+    D, half = spec.head_dim, spec.head_dim // 2
+    group = spec.n_heads // spec.n_kv_heads
+    freqs = spec.rope_theta ** (-torch.arange(half, dtype=torch.float64) / half)
+
+    def mat(t):
+        return t.q.double() * t.scale.double()[None, :]
+
+    def norm(x, g):
+        return x * torch.rsqrt((x * x).mean(-1, keepdim=True) + spec.rms_eps) * g.double()
+
+    def rope(x, pos):  # x [S, H, D], pos [S]
+        ang = pos.double()[:, None, None] * freqs
+        x1, x2 = x[..., :half], x[..., half:]
+        return torch.cat([x1 * torch.cos(ang) - x2 * torch.sin(ang),
+                          x2 * torch.cos(ang) + x1 * torch.sin(ang)], -1)
+
+    def kv_round(x):
+        scale = torch.clamp(x.abs().amax(-1) / 127.0, min=1e-8)
+        return torch.clamp(torch.round(x / scale[..., None]), -127, 127) * scale[..., None]
+
+    def forward(tokens, pos, caches, exact):
+        h = params["embed"].double()[torch.as_tensor(tokens)]
+        for li, la in enumerate(params["layers"]):
+            x = norm(h, la["input_norm"])
+            qkv = x @ mat(la["qkv_proj"]) + la["qkv_bias"].double()
+            nq, nkv = spec.n_heads * D, spec.n_kv_heads * D
+            q = rope(qkv[:, :nq].reshape(-1, spec.n_heads, D), pos)
+            k = rope(qkv[:, nq:nq + nkv].reshape(-1, spec.n_kv_heads, D), pos)
+            v = qkv[:, nq + nkv:].reshape(-1, spec.n_kv_heads, D)
+            ck, cv = caches[li]
+            caches[li] = (torch.cat([ck, kv_round(k)]), torch.cat([cv, kv_round(v)]))
+            keys, vals = (k, v) if exact else caches[li]
+            keys = keys.repeat_interleave(group, dim=1)
+            vals = vals.repeat_interleave(group, dim=1)
+            att = torch.einsum("qhd,khd->hqk", q, keys) / np.sqrt(D)
+            n_k = keys.shape[0]
+            causal = pos[:, None] >= torch.arange(n_k)[None, :] + (pos[0] if exact else 0)
+            att = torch.where(causal[None], att, torch.tensor(-np.inf, dtype=torch.float64))
+            o = torch.einsum("hqk,khd->qhd", torch.softmax(att, -1), vals).reshape(len(tokens), -1)
+            h = h + o @ mat(la["o_proj"])
+            gu = norm(h, la["post_norm"]) @ mat(la["gateup_proj"])
+            h = h + (torch.nn.functional.silu(gu[:, :spec.ffn]) * gu[:, spec.ffn:]) @ mat(
+                la["down_proj"])
+        h = norm(h[-1:], params["final_norm"])
+        head = params["embed"].double().T if spec.tie_embeddings else mat(params["lm_head"])
+        return torch.log_softmax(h @ head, -1)[0]
+
+    caches = [(torch.zeros(0, spec.n_kv_heads, D, dtype=torch.float64),) * 2
+              for _ in params["layers"]]
+    lp = forward(list(prompt), torch.arange(len(prompt)), caches, exact=True)
+    out = [float(lp[out_tokens[0]])]
+    for i, tok in enumerate(out_tokens[:-1]):
+        lp = forward([tok], torch.tensor([len(prompt) + i]), caches, exact=False)
+        out.append(float(lp[out_tokens[i + 1]]))
+    return np.asarray(out)
+
+
+def _which_side_moved(j_lps, t_lps, ref_lps, note="") -> str:
+    """The steps whose logprobs differ by more than LP_ATOL, each package's
+    distance from the f64 recomputation there, and the side farther from it."""
+    j_lps, t_lps = np.asarray(j_lps), np.asarray(t_lps)
+    bad = np.flatnonzero(np.abs(t_lps - j_lps) > LP_ATOL)
+    d_jax, d_port = np.abs(j_lps - ref_lps)[bad], np.abs(t_lps - ref_lps)[bad]
+    side = ("the port moved" if d_port.max() > d_jax.max()
+            else "the JAX package moved" if d_jax.max() > d_port.max() else "both moved")
+    rows = ", ".join(f"step {i}: jax {j_lps[i]:.6f} port {t_lps[i]:.6f} f64 {ref_lps[i]:.6f}"
+                     for i in bad)
+    return (f"logprobs differ beyond LP_ATOL={LP_ATOL} at steps {bad.tolist()}; "
+            f"distance from f64 jax {d_jax.max():.3g}, port {d_port.max():.3g}: {side}"
+            f"{note} ({rows})")
+
+
+def _same_requests(jreqs, treqs, diagnose=None):
+    """``diagnose`` = (port params, spec): a logprob mismatch is reported
+    against the f64 recomputation of each request (``_which_side_moved``)."""
     for j, t in zip(jreqs, treqs):
         assert t.done and j.done and t.error is None and j.error is None, (j.error, t.error)
         assert t.out_tokens == j.out_tokens
+        if diagnose is not None and not np.allclose(t.out_logprobs, j.out_logprobs, rtol=0,
+                                                    atol=LP_ATOL):
+            ref = _f64_logprobs(*diagnose, t.prompt, t.out_tokens)
+            pytest.fail(_which_side_moved(j.out_logprobs, t.out_logprobs, ref,
+                                          f"; preemptions {t.preemptions}"))
         np.testing.assert_allclose(t.out_logprobs, j.out_logprobs, atol=LP_ATOL)
         assert t.n_accepted == j.n_accepted and t.preemptions == j.preemptions
         assert t.position == j.position and t.next_token == j.next_token
@@ -136,7 +222,7 @@ def test_preempted_requests_complete_identically(roomy, tight, scan_steps, mode,
     subs = [(p, dict(max_new=30)) for p in LONG]
     (jr, js), (tr, ts) = _both(tight, subs, **kw)
     assert [r.out_tokens for r in tr] == want
-    _same_requests(jr, tr)
+    _same_requests(jr, tr, diagnose=(tight[1].params, TINY))
     assert ts.preemptions == js.preemptions >= 1
     assert ts.swap_preemptions == js.swap_preemptions
     assert (ts.swap_preemptions >= 1) == (mode == "swap" and budget is None)
@@ -147,6 +233,22 @@ def test_preempted_requests_complete_identically(roomy, tight, scan_steps, mode,
     # a victim over the host budget is gathered, then dropped and recomputed
     assert n["swap_in"] == ts.swap_preemptions and n["swap_out"] >= n["swap_in"]
     assert (n["swap_out"] > n["swap_in"]) == (budget == 0)
+
+
+def test_f64_recomputation_tracks_both_packages(roomy):
+    """The diagnostic's reference: on an unpressured run each package's
+    greedy logprobs lie within LP_ATOL of the f64 recomputation, and a
+    logprob moved on one side is named as that side's."""
+    (jr, _), (tr, _) = _both(roomy, [(p, dict(max_new=30)) for p in LONG], max_batch=2,
+                             max_context=128)
+    for j, t in zip(jr, tr):
+        ref = _f64_logprobs(roomy[1].params, TINY, t.prompt, t.out_tokens)
+        np.testing.assert_allclose(t.out_logprobs, ref, atol=LP_ATOL)
+        np.testing.assert_allclose(j.out_logprobs, ref, atol=LP_ATOL)
+        moved = np.asarray(t.out_logprobs)
+        moved[5] += 3 * LP_ATOL
+        assert "the port moved" in _which_side_moved(j.out_logprobs, moved, ref)
+        assert "the JAX package moved" in _which_side_moved(moved, t.out_logprobs, ref)
 
 
 def test_swap_budget_is_charged_with_the_blob_bytes(tight):
