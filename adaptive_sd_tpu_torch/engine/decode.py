@@ -30,6 +30,7 @@ on the engine's device.
 from __future__ import annotations
 
 import functools
+import logging
 import time
 from dataclasses import dataclass
 from typing import Optional, Sequence
@@ -58,6 +59,7 @@ from .kv_cache import PagedKVCache
 from .prefix_cache import PrefixCache
 
 PAD_ID = 0
+logger = logging.getLogger(__name__)
 
 
 def _bucket_batch(b: int) -> int:
@@ -127,6 +129,7 @@ class TierEngine:
         act_quant: bool = False,
         prefix_spill_bytes: int = 0,
         cuda_graphs: bool = True,
+        mesh=None,
     ) -> None:
         """``act_quant``: INT8 weights take the W8A8 path (dynamic INT8
         activations, ``ops.matmul_q.quantized_matmul_w8a8``) in every forward
@@ -136,8 +139,51 @@ class TierEngine:
         CUDA device, the decode loops (generate, verify-continue, the
         scheduler's scan) replay captured CUDA graphs; False runs the same
         device-side loops without capture (a comparison). No effect on the
-        CPU."""
+        CPU.
+
+        ``mesh``: this rank's :class:`~adaptive_sd_tpu_torch.parallel.mesh.Mesh`
+        (every rank of the world builds the same engine and makes the same
+        calls). ``params`` may then be a host tree (CPU tensors, or the numpy
+        tree of models/convert.py) of the whole model. Where the spec divides
+        across the mesh's ``tp`` axis (models/qwen_tp.py ``tp_compatible``),
+        the engine moves only this rank's shard of the weights to its device,
+        a layer at a time, allocates only its heads of the KV cache, and runs
+        models/qwen.py's forward with ``tp=`` the group (``tp_mode``;
+        ``self.spec`` is then the rank's ``local_spec``). Otherwise every rank
+        runs the whole tier, replicated (the JAX engine hands such a tier to
+        GSPMD, which PyTorch has not). A ``dp`` axis replicates. Sampling
+        reads the gathered logits, the same bits on every rank, so every rank
+        returns the same tokens. Collectives of a gloo group cannot be
+        captured in a CUDA graph: a tensor-parallel engine on CUDA over gloo
+        needs ``cuda_graphs=False``."""
         self.device = resolve_device(device)
+        self.tp_mode = False
+        tp_kw = {}
+        if mesh is not None:
+            from ..models.convert import params_from_jax
+            from ..models.qwen_tp import local_spec, prepare_tp_params, tp_compatible, tree_to
+            from ..parallel.mesh import AXIS_TP
+
+            if isinstance(params["embed"], np.ndarray):
+                params = params_from_jax(params, "cpu")
+            tp = mesh.shape.get(AXIS_TP, 1)
+            self.tp_mode = tp_compatible(spec, params, tp)
+            backend = mesh.tp.backend
+            if self.tp_mode and cuda_graphs and self.device.type == "cuda" and backend != "nccl":
+                raise ValueError(
+                    f"cuda_graphs=True needs collectives a CUDA graph can capture, and the "
+                    f"tp group's backend is {backend!r}: pass cuda_graphs=False (or use an "
+                    f"NCCL group)")
+            name = name or spec.name
+            if self.tp_mode:
+                params = prepare_tp_params(params, spec, mesh, self.device)
+                spec = local_spec(spec, tp)
+                tp_kw = {"tp": mesh.tp}
+            else:
+                if tp > 1:
+                    logger.warning("%s: tp=%d does not divide this tier; every rank runs it "
+                                   "whole (replicated)", name, tp)
+                params = tree_to(params, self.device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(
                 f"params live on {params['embed'].device}, the engine on {self.device}"
@@ -149,8 +195,8 @@ class TierEngine:
         self.cost_per_token = cost_per_token
         self.params = params
         self.act_quant = bool(act_quant)
-        # extra keywords of every forward call (empty without act_quant)
-        self._fwd_kw = {"act_quant": True} if self.act_quant else {}
+        # extra keywords of every forward call (empty without act_quant or tp)
+        self._fwd_kw = {"act_quant": True, **tp_kw} if self.act_quant else tp_kw
         self.allocator = PageAllocator(n_pages)
         self.cache = PagedKVCache.create(spec, n_pages, page_size, device=self.device)
         # automatic prefix caching: content-addressed KV-page reuse; prompts

@@ -171,6 +171,10 @@ class ContinuousBatchingScheduler:
         self._oob_page = engine.allocator.n_pages
         self._tables = np.full((max_batch, self.max_pages), self._oob_page, np.int32)
         self._admission_wait = admission_wait_s
+        # the ranks of a tensor-parallel engine issue their collectives in
+        # step: each must admit the same batch, so the clock does not cut an
+        # admission short there (each rank queues the same requests itself)
+        self._same_batch_on_every_rank = bool(getattr(engine, "tp_mode", False))
         self._lock = threading.Lock()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
@@ -491,7 +495,7 @@ class ContinuousBatchingScheduler:
             except queue.Empty:
                 break
             batch.append((free[len(batch)], req))
-            if time.monotonic() > deadline:
+            if time.monotonic() > deadline and not self._same_batch_on_every_rank:
                 break
         if not batch:
             return 0

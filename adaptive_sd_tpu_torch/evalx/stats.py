@@ -12,7 +12,6 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional, Sequence
 
 import numpy as np
-from scipy import stats as sp_stats
 
 
 @dataclass
@@ -37,6 +36,8 @@ class RigorousEvaluator:
     # ----------------------------------------------------------------- tests
     def paired_t_test(self, a: Sequence[float], b: Sequence[float]) -> StatisticalResult:
         """a vs b paired; CI on the mean difference (reference :45-115)."""
+        from scipy import stats as sp_stats  # seconds to import; only here
+
         a, b = np.asarray(a, float), np.asarray(b, float)
         if a.shape != b.shape or a.size < 2:
             raise ValueError("paired test needs equal-length samples, n >= 2")
@@ -60,6 +61,8 @@ class RigorousEvaluator:
         )
 
     def independent_t_test(self, a: Sequence[float], b: Sequence[float]) -> StatisticalResult:
+        from scipy import stats as sp_stats  # seconds to import; only here
+
         a, b = np.asarray(a, float), np.asarray(b, float)
         t, p = sp_stats.ttest_ind(a, b, equal_var=False)
         pooled = np.sqrt((a.var(ddof=1) + b.var(ddof=1)) / 2)
@@ -82,6 +85,8 @@ class RigorousEvaluator:
 
     def _power(self, d: float, n: int) -> float:
         """Post-hoc power for a two-sided t-test at alpha."""
+        from scipy import stats as sp_stats  # seconds to import; only here
+
         if n < 2:
             return 0.0
         nc = d * np.sqrt(n)
@@ -137,6 +142,8 @@ class RigorousEvaluator:
     # ------------------------------------------------------------ assumptions
     def check_assumptions(self, data: Sequence[float]) -> dict:
         """Normality (Shapiro) + skew/kurtosis diagnostics."""
+        from scipy import stats as sp_stats  # seconds to import; only here
+
         data = np.asarray(data, float)
         if data.size < 3:
             return {"normal": None, "note": "too few samples"}

@@ -9,6 +9,12 @@ kernel path). Decode attention reads and writes the paged INT8 KV cache
 then quantises K/V into pages; ``prefill_window`` attends a cached prefix
 through the paged window kernel. Which code runs (hand-written CUDA kernels
 or their plain versions) follows the device of the tensors.
+
+``tp``: set (a :class:`~adaptive_sd_tpu_torch.parallel.mesh.TPGroup`) when
+this process runs one rank's shard of a tensor-parallel forward
+(models/qwen_tp.py). ``spec`` then carries the LOCAL head and ffn counts
+(the global vocab), params and cache are this rank's shards, each sublayer
+ends in one all_reduce over the group, and logits are gathered whole.
 """
 
 from __future__ import annotations
@@ -267,28 +273,60 @@ def _qkv(spec: ModelSpec, layer, x, *, act_quant: bool = False):
     )
 
 
-def _attn_out(layer, attn: torch.Tensor, *, act_quant: bool = False) -> torch.Tensor:
+def _embed(params: Params, spec: ModelSpec, tokens: torch.Tensor, tp) -> torch.Tensor:
+    """Token-embedding gather. A vocab-sharded table [V/tp, H] (under
+    ``tp``) gathers the rows this rank owns, zeros elsewhere, and one
+    all_reduce assembles them: exact, since one rank owns each row."""
+    table = params["embed"]
+    if tp is not None and table.shape[0] != spec.vocab_size:
+        v_loc = table.shape[0]
+        loc = tokens.long() - tp.rank * v_loc
+        ok = (loc >= 0) & (loc < v_loc)
+        rows = table[loc.clamp(0, v_loc - 1)]
+        return tp.all_reduce(torch.where(ok[..., None], rows, torch.zeros_like(rows)))
+    return table[tokens.long()]
+
+
+def _row_reduce(x, w, tp, overlap: bool, *, act_quant: bool):
+    """Row-parallel sublayer ending: the local matmul, then under ``tp`` one
+    all_reduce (or, with ``overlap``, the ring of parallel/overlap.py)."""
+    if tp is None:
+        return linear(x, w, act_quant=act_quant)
+    from ..parallel.overlap import row_parallel_reduce
+
+    return row_parallel_reduce(x, w, tp, lambda xx, ww: linear(xx, ww, act_quant=act_quant),
+                               overlap=overlap)
+
+
+def _attn_out(layer, attn: torch.Tensor, *, act_quant: bool = False, tp=None,
+              tp_overlap: bool = False) -> torch.Tensor:
     """Output projection of the attention sublayer."""
-    return linear(attn, layer["o_proj"], act_quant=act_quant)
+    return _row_reduce(attn, layer["o_proj"], tp, tp_overlap, act_quant=act_quant)
 
 
-def _mlp(spec: ModelSpec, layer, x, *, act_quant: bool = False):
-    """SwiGLU MLP, fused (gateup_proj) or separate."""
+def _mlp(spec: ModelSpec, layer, x, *, act_quant: bool = False, tp=None,
+         tp_overlap: bool = False):
+    """SwiGLU MLP, fused (gateup_proj) or separate. Under ``tp`` gate/up are
+    column-parallel and down row-parallel: one all_reduce a sublayer."""
     if "gateup_proj" in layer:
         gu = linear(x, layer["gateup_proj"], act_quant=act_quant)
         gate, up = gu[..., : spec.ffn], gu[..., spec.ffn :]
     else:
         gate = linear(x, layer["gate_proj"], act_quant=act_quant)
         up = linear(x, layer["up_proj"], act_quant=act_quant)
-    return linear(F.silu(gate) * up, layer["down_proj"], act_quant=act_quant)
+    return _row_reduce(F.silu(gate) * up, layer["down_proj"], tp, tp_overlap,
+                       act_quant=act_quant)
 
 
 def _logits(params: Params, spec: ModelSpec, h: torch.Tensor, *,
-            act_quant: bool = False) -> torch.Tensor:
+            act_quant: bool = False, tp=None) -> torch.Tensor:
     h = rms_norm(h, params["final_norm"], spec.rms_eps)
     if spec.tie_embeddings:
-        return torch.matmul(h.float(), params["embed"].float().T)
-    return linear(h, params["lm_head"], act_quant=act_quant).float()
+        logits = torch.matmul(h.float(), params["embed"].float().T)
+    else:
+        logits = linear(h, params["lm_head"], act_quant=act_quant).float()
+    # under tp each rank holds V/tp vocab columns: gather them, in rank order
+    return logits if tp is None else tp.all_gather_last(logits)
 
 
 def _heads(spec: ModelSpec, x: torch.Tensor, n: int) -> torch.Tensor:
@@ -306,12 +344,13 @@ def prefill(
     *,
     return_hidden: bool = False,
     act_quant: bool = False,
+    tp=None,
 ):
     """Process full prompts; returns (last-token logits [B, V] f32, cache)
     or, with ``return_hidden``, (logits, cache, hidden [B, S, H] before the
     final norm)."""
     B, S = tokens.shape
-    h = params["embed"][tokens.long()]
+    h = _embed(params, spec, tokens, tp)
     positions = torch.arange(S, device=tokens.device)[None, :].expand(B, S)
     cos, sin = rope_tables(positions, spec.head_dim, spec.rope_theta)
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
@@ -325,22 +364,22 @@ def prefill(
         v = _heads(spec, v, spec.n_kv_heads)
         attn = prefill_attention(q, k, v, sm_scale=sm_scale, seq_lens=seq_lens)
         h = h + _attn_out(layer, attn.reshape(B, S, spec.n_heads * spec.head_dim),
-                          act_quant=act_quant)
+                          act_quant=act_quant, tp=tp)
         cache.write_prefill(li, k, v, block_tables, seq_lens)
         h = h + _mlp(spec, layer, rms_norm(h, layer["post_norm"], spec.rms_eps),
-                     act_quant=act_quant)
+                     act_quant=act_quant, tp=tp)
 
     last = h[torch.arange(B, device=h.device), seq_lens.long() - 1]
-    logits = _logits(params, spec, last, act_quant=act_quant)
+    logits = _logits(params, spec, last, act_quant=act_quant, tp=tp)
     if return_hidden:
         return logits, cache, h
     return logits, cache
 
 
 def logits_at(params: Params, spec: ModelSpec, h: torch.Tensor, *,
-              act_quant: bool = False) -> torch.Tensor:
+              act_quant: bool = False, tp=None) -> torch.Tensor:
     """Per-position logits from hidden states (speculative verify)."""
-    return _logits(params, spec, h, act_quant=act_quant)
+    return _logits(params, spec, h, act_quant=act_quant, tp=tp)
 
 
 def prefill_window(
@@ -353,13 +392,14 @@ def prefill_window(
     block_tables: torch.Tensor,  # [B, max_pages] int32
     *,
     act_quant: bool = False,
+    tp=None,
 ):
     """Chunked prefill of a WINDOW whose prefix KV is already in the cache
     pages: each window position attends the cached prefix plus the window's
     causal prefix through the paged window kernel. Returns (hidden [B, W, H]
     before the final norm, cache); logits via :func:`logits_at`."""
     B, W = tokens.shape
-    h = params["embed"][tokens.long()]
+    h = _embed(params, spec, tokens, tp)
     positions = offsets[:, None] + torch.arange(W, device=tokens.device)[None, :]
     cos, sin = rope_tables(positions, spec.head_dim, spec.rope_theta)
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
@@ -383,9 +423,9 @@ def prefill_window(
             block_tables, ctx_lens, offsets, group=G, sm_scale=sm_scale,
         )
         attn = attn.reshape(B, n_kv, W, G, D).transpose(1, 2).reshape(B, W, spec.n_heads * D)
-        h = h + _attn_out(layer, attn, act_quant=act_quant)
+        h = h + _attn_out(layer, attn, act_quant=act_quant, tp=tp)
         h = h + _mlp(spec, layer, rms_norm(h, layer["post_norm"], spec.rms_eps),
-                     act_quant=act_quant)
+                     act_quant=act_quant, tp=tp)
     return h, cache
 
 
@@ -398,10 +438,14 @@ def decode_step(
     block_tables: torch.Tensor,  # [B, max_pages] int32
     *,
     act_quant: bool = False,
+    tp=None,
+    tp_overlap: bool = False,
 ):
-    """One decode step for the whole batch; returns (logits [B, V] f32, cache)."""
+    """One decode step for the whole batch; returns (logits [B, V] f32, cache).
+    ``tp_overlap``: under ``tp``, end the row-parallel sublayers with the
+    ring of parallel/overlap.py (decode only)."""
     B = tokens.shape[0]
-    h = params["embed"][tokens.long()]
+    h = _embed(params, spec, tokens, tp)
     cos, sin = rope_tables(positions, spec.head_dim, spec.rope_theta)  # [B, half]
     cos, sin = cos[:, None, :], sin[:, None, :]
     positions = positions.to(torch.int32)
@@ -421,8 +465,8 @@ def decode_step(
             block_tables, seq_lens, sm_scale=sm_scale,
         )
         h = h + _attn_out(layer, attn.reshape(B, spec.n_heads * spec.head_dim),
-                          act_quant=act_quant)
+                          act_quant=act_quant, tp=tp, tp_overlap=tp_overlap)
         h = h + _mlp(spec, layer, rms_norm(h, layer["post_norm"], spec.rms_eps),
-                     act_quant=act_quant)
+                     act_quant=act_quant, tp=tp, tp_overlap=tp_overlap)
 
-    return _logits(params, spec, h, act_quant=act_quant), cache
+    return _logits(params, spec, h, act_quant=act_quant, tp=tp), cache

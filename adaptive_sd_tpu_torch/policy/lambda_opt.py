@@ -12,7 +12,6 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional, Sequence
 
 import numpy as np
-from scipy import optimize as sp_optimize
 
 
 @dataclass
@@ -103,6 +102,8 @@ class LambdaOptimizer:
     ) -> OptimizationResult:
         """Scalar minimisation of cost_weight*cost - quality_weight*quality in
         log-lambda space (reference src/algorithms/optimizer.py:157-205)."""
+        from scipy import optimize as sp_optimize  # seconds to import; only here
+
         evals: list[LambdaEvaluation] = []
 
         def objective(log_lam: float) -> float:

@@ -107,16 +107,41 @@ Phases, one JSON line each; any failure exits non-zero:
    initial weights gives the CPU's loss curve within TRAIN_TOL; one rehearsal
    request runs inside ``TorchProfilerTrace`` and must leave a non-empty
    Chrome trace.
-9. path_shapes: the matmul wrappers collected every distinct (M, K, N, group
+9. tp: tensor parallelism, two ranks sharing the card, joined by gloo
+   (NCCL refuses two ranks on one GPU; the forward's all_reduce and
+   all_gather on CUDA tensors go through shared host memory,
+   parallel/host_memory.py), started by ``parallel.spawn_ranks``; each rank
+   loads the kernel libraries built here. (a) Qwen2.5-7B at full width and
+   depth, INT8 fused, f32 activations, prefix cache on: every rank's greedy
+   tokens equal the tp=1 engine's on the same weights (run here while the
+   ranks start, and it must accept its own output too), a verify of half
+   the output is accepted in full, and the scheduler's plain and
+   one-wrong-token requests give the greedy tokens and 2 accepted; (b)
+   Qwen2.5-14B at full width, grouped INT4 (group 128; the INT4 row repack at
+   the published width), bf16, depth cut to TP_14B_LAYERS, accepts its own
+   greedy output in full. Each rank's launch counts (INT8, INT4, paged
+   decode and window, all required) and the eager ms a step at tp=2 beside
+   tp=1, which are collectives through host memory on one card, not a TP
+   speed figure.
+   Each rank builds its tp engines from the whole tier's host tree: what the
+   card then keeps may pass its weight shard and KV cache by TP_BUILD_SLACK
+   at most, and its peak during the build that by TP_BUILD_PIECES times the
+   largest layer (or lm_head) at most. The phase fails past TP_PHASE_LIMIT_S;
+   each rank's ``timeline`` gives the seconds since the phase began at each
+   of its steps.
+   The ring overlap does not run here (gloo's send/recv refuse CUDA
+   tensors); the CPU tests cover it.
+10. path_shapes: the matmul wrappers collected every distinct (M, K, N, group
    size, type) that the paths from checkpoint to rehearsal launched them at,
    and the paged window wrapper every forward's call (batch, W, offsets,
    window lengths, G, head dim, type; a line gives the histograms of W and
    of the cached pages); each kernel is held against its plain version at
-   every one of them.
+   every one of them (the tp ranks' shard shapes included).
 
 The kernels' launch counters are zeroed just before each of the paths 4, 5,
-6 and 8 (the scheduler, checkpoint, scheduled_pipeline, routing and graphs
-paths too; a graph's replay adds the launches its capture recorded)
+6, 8 and 9 (the scheduler, checkpoint, scheduled_pipeline, routing and graphs
+paths too; a graph's replay adds the launches its capture recorded; the tp
+path's counts are the ranks' sum)
 and read just after;
 every kernel of a path must have been launched. The scheduled_pipeline path
 counts the scheduled plane's runs only, not the fused runs it is held against.
@@ -144,6 +169,7 @@ import resource
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import zlib
 
@@ -162,7 +188,7 @@ from adaptive_sd_tpu_torch.cascade import (
 from adaptive_sd_tpu_torch.core.types import RequestContext
 from adaptive_sd_tpu_torch.engine import ContinuousBatchingScheduler, TierEngine
 from adaptive_sd_tpu_torch.engine import native_bridge
-from adaptive_sd_tpu_torch.engine.decode import _bucket_len
+from adaptive_sd_tpu_torch.engine.decode import _bucket_len, _param_bytes
 from adaptive_sd_tpu_torch.engine.graphs import LOOP_CHUNK, DeviceLoops
 from adaptive_sd_tpu_torch.evalx import (
     LambdaSweepHarness,
@@ -201,8 +227,13 @@ from adaptive_sd_tpu_torch.predict import (
 from adaptive_sd_tpu_torch.ops import _kernels
 from adaptive_sd_tpu_torch.ops import attention as A
 from adaptive_sd_tpu_torch.ops import matmul_q as MQ
+from adaptive_sd_tpu_torch.ops.quant import QuantizedTensor
 from adaptive_sd_tpu_torch.utils import TorchProfilerTrace
 from adaptive_sd_tpu_torch.utils.metrics import global_metrics
+
+# when this module's imports were done (a spawned tp rank's timeline starts
+# its own steps from here)
+_IMPORTED_AT = time.time()
 
 MAX_NEW = 32
 PROMPT_LENS = (37, 150, 300, 513)  # cross page boundaries at page 128
@@ -265,6 +296,23 @@ ENSEMBLE_LAMBDAS = (1.0, 0.3, 0.1, 0.03)
 LOAD_N = 12
 LOAD_RATE = 4.0
 LOAD_N_TRAIN = 16
+# the tp phase: two ranks on the one card, joined by gloo (NCCL refuses two
+# ranks on one GPU; CUDA tensors go through shared host memory). (a)
+# Qwen2.5-7B at full width and depth, INT8 fused, f32 activations, prefix
+# cache on: two prompts, TP_MAX_NEW tokens, against a tp=1 engine on the
+# same weights; (b) Qwen2.5-14B at full width, grouped INT4 (group 128),
+# bf16, depth cut to TP_14B_LAYERS of 48
+TP_WORLD = 2
+TP_PROMPT_LENS = (37, 150)
+TP_MAX_NEW = 32
+TP_14B_LAYERS = 8
+TP_PHASE_LIMIT_S = 60.0
+# what a tp engine built from the host tree may keep on the card beyond its
+# weight shard and its KV cache; while it is built, the card may also hold
+# TP_BUILD_PIECES times the largest piece sent whole (a layer: its copy and
+# its laid-out copies; or the lm_head)
+TP_BUILD_SLACK = 64 << 20
+TP_BUILD_PIECES = 3
 
 
 def _load_script(name: str = "torch_real_smoke"):
@@ -498,7 +546,7 @@ def phase_kernels(dev, rates, timer) -> dict:
                "bound_ms": b_ms, "bound_by": b_by}
         if library:
             row["library"] = library
-        if fn_dequant is not None:  # the torch.matmul route INT8 took at M >= 512
+        if fn_dequant is not None:  # torch.matmul on the dequantised weight, beside
             row["dequant_ms"] = timer(fn_dequant, reps)
         row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
         results[kernel].append(row)
@@ -512,7 +560,8 @@ def phase_kernels(dev, rates, timer) -> dict:
     # INT8 weight-only matmul (csrc/matmul_int8.cu): every projection at
     # decode M = 1 and 4 lanes; the layer's four projections at verify
     # windows and at prefill M, where torch.matmul on the dequantised weight
-    # (the JAX package's route at M >= 512) is timed beside the kernel. Bound:
+    # (the JAX package's route at M >= 512) is timed beside the kernel at
+    # every window M. Bound:
     # bytes, or operations at the bf16 tensor-core peak for both types.
     # Library yardstick: torch._weight_int8pack_mm at every M (the
     # dequantised torch.matmul is a row's own column, dequant_ms).
@@ -530,7 +579,7 @@ def phase_kernels(dev, rates, timer) -> dict:
               fn_lib=_int8pack_call(x, q, scale), reps=reps,
               ops_dtype=torch.bfloat16,
               variant=variant,
-              fn_dequant=(lambda: _dequant_call(x, q, scale)) if M >= 512 else None)
+              fn_dequant=(lambda: _dequant_call(x, q, scale)) if M > 16 else None)
         del q, x, out, ref
         torch.cuda.empty_cache()
 
@@ -584,8 +633,9 @@ def phase_kernels(dev, rates, timer) -> dict:
     # tensor-core peak for both types (f32 x runs as three exact bf16 terms;
     # no exact f32 product on the card is faster than one bf16 pass).
     # Library yardstick: torch._weight_int4pack_mm on the same values repacked
-    # once (grouped bf16; its scales are bf16); elsewhere (f32, per-channel)
-    # torch.matmul on the weight dequantised outside the timed call.
+    # once (grouped bf16; its scales are bf16), with torch.matmul on the
+    # weight dequantised outside the timed call beside it at window M
+    # (dequant_ms); elsewhere (f32, per-channel) that torch.matmul alone.
     def int4_case(kernel, label, M, K, N, gs, dtype, reps=None):
         esize = torch.empty((), dtype=dtype).element_size()
         q = torch.randint(-128, 128, (K // 2, N), generator=g, device=dev, dtype=torch.int8)
@@ -603,7 +653,8 @@ def phase_kernels(dev, rates, timer) -> dict:
               fn_p=lambda: MQ.quantized_matmul_ref(x, q, scale, bits=4),
               fn_lib=lib or _int4_dequant_call(x, q, scale), reps=reps,
               ops_dtype=torch.bfloat16, variant=_variant(label, M),
-              library="torch._weight_int4pack_mm" if lib else "dequantised torch.matmul")
+              library="torch._weight_int4pack_mm" if lib else "dequantised torch.matmul",
+              fn_dequant=_int4_dequant_call(x, q, scale) if lib and M > 16 else None)
         del q, x, out, ref
         torch.cuda.empty_cache()
 
@@ -2957,6 +3008,268 @@ def phase_load(dev) -> dict:
     return launches
 
 
+def _tp_engine_run(engine, prompts, n_draft: int) -> dict:
+    """Greedy generate, then verify_continue of the first ``n_draft`` tokens
+    of each output (which must be accepted in full and continue to the same
+    tokens); the eager decode time a step of the generate."""
+    outs, _ = _call(engine.generate, prompts, max_new=TP_MAX_NEW)
+    ver, _ = _call(engine.verify_continue, prompts,
+                   [o.token_ids[:n_draft].tolist() for o in outs], max_new=TP_MAX_NEW)
+    return {"tokens": [o.token_ids.tolist() for o in outs],
+            "finite": bool(all(np.isfinite(o.logprobs).all() for o in outs)),
+            "n_acc": [int(a) for _, a in ver], "of": n_draft,
+            "continued_same": [v.token_ids.tolist() for v, _ in ver]
+            == [o.token_ids.tolist() for o in outs],
+            "ms_per_step": outs[0].decode_time_s * 1e3 / TP_MAX_NEW}
+
+
+def _tp_scheduler(engine, prompt, greedy) -> dict:
+    """A plain request and a draft with one wrong token (the third) through
+    the continuous-batching scheduler over the tp engine."""
+    bad = list(greedy)
+    bad[2] = (bad[2] + 1) % (engine.spec.vocab_size - 1) + 1
+    sched = ContinuousBatchingScheduler(engine, max_batch=2, max_context=512, scan_steps=4)
+    _require_native(sched, "tp scheduler")
+    plain = sched.submit(prompt, max_new=len(greedy))
+    draft = sched.submit(prompt, max_new=len(greedy), draft=bad)
+    _drain(sched, [plain, draft], "tp scheduler")
+    return {"plain_same": list(plain.out_tokens) == list(greedy),
+            "draft_same": list(draft.out_tokens) == list(greedy),
+            "n_accepted": int(draft.n_accepted)}
+
+
+def _tp_build(spec, host, mesh, device, kw) -> tuple:
+    """Build this rank's tp engine from the whole model's host tree, as a
+    rank of a model too large for one card builds it. Returns the engine
+    and what the build put on the card: its peak and what stays, beside
+    the shard's and the KV cache's bytes and the largest piece (a layer or
+    the lm_head) that goes to the card whole to be laid out and cut."""
+    whole = _param_bytes(host)
+    piece = max(_param_bytes(p) for p in [*host["layers"], host.get("lm_head")])
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    engine = TierEngine(spec, host, mesh=mesh, **kw)
+    torch.cuda.synchronize(device)
+    return engine, {"seconds": time.perf_counter() - t0, "whole_bytes": whole,
+                    "largest_piece_bytes": piece, "shard_bytes": _param_bytes(engine.params),
+                    "kv_cache_bytes": engine.cache.memory_bytes(),
+                    "resident_bytes": torch.cuda.memory_allocated(device) - base,
+                    "build_peak_bytes": torch.cuda.max_memory_allocated(device) - base}
+
+
+def _tp_weights(spec, device, which: str) -> dict:
+    """The tp phase's weights of (a) or (b), made on ``device`` from the
+    phase's seeds."""
+    if which == "a":
+        return init_params_quantized(spec, torch.Generator(device=device).manual_seed(1200),
+                                     bits=8, device=device, dtype=torch.float32)
+    return init_params_quantized(spec, torch.Generator(device=device).manual_seed(1400),
+                                 bits=4, group_size=128, device=device, dtype=torch.bfloat16)
+
+
+def _host_copy(node):
+    """A params tree copied from the card to pinned host memory: the card's
+    machine faults fresh pageable memory in at 2.5 GB/s, so a pageable copy
+    runs at 2.2 GB/s and one staged through a pinned buffer at 1.5, while a
+    pinned copy runs at 3.4-4.5 with its pinning counted
+    (scripts/torch_gloo_cuda_probe.py). On the CPU the tree is cloned."""
+    if isinstance(node, dict):
+        return {k: _host_copy(v) for k, v in node.items()}
+    if isinstance(node, list):
+        return [_host_copy(v) for v in node]
+    if isinstance(node, QuantizedTensor):
+        return QuantizedTensor(_host_copy(node.q), _host_copy(node.scale), node.bits)
+    host = torch.empty(node.shape, dtype=node.dtype, pin_memory=node.is_cuda)
+    return host.copy_(node)
+
+
+def _tp_kw(device) -> dict:
+    return dict(page_size=PAGE, n_pages=64, device=device, enable_prefix_cache=True,
+                cuda_graphs=False)
+
+
+def _tp_rank(rank: int, device, prompts, t_start: float) -> dict:
+    """One rank of the tp phase (spawned; loads the kernel libraries the
+    parent built). Each rank makes the weights on the card from the phase's
+    seeds, copies them to pinned host memory and builds its tp engines from
+    there; then it zeroes its launch counters, collects the kernels'
+    shapes, and drives the tp engines of (a) and (b). ``timeline``: seconds
+    since the parent started the phase at each step."""
+    from adaptive_sd_tpu_torch.parallel import build_mesh
+
+    timeline = {"imported": _IMPORTED_AT - t_start}
+
+    def stamp(name):
+        timeline[name] = time.time() - t_start
+
+    stamp("started")
+    mesh = build_mesh(dp=1, tp=TP_WORLD)
+    out = {"rank": rank, "device": str(device), "backend": mesh.tp.backend,
+           "world": mesh.size, "card": torch.cuda.get_device_name(device),
+           "timeline": timeline}
+    kw = _tp_kw(device)
+    spec7 = get_spec(DEFAULT_CASCADE[0])
+    host = _host_copy(_tp_weights(spec7, device, "a"))  # the card keeps no copy of the tier
+    stamp("host_a")
+    engine, out["build_a"] = _tp_build(spec7, host, mesh, device, kw)
+    del host
+    stamp("built_a")
+    if not engine.tp_mode:
+        fail("tp: the 7B tier did not take the tensor-parallel path")
+    engine.warmup(max_new=2)
+    stamp("warm_a")
+    out["collectives"] = ("shared host memory" if mesh.tp._host and mesh.tp._host[0] is not None
+                          else mesh.tp.backend)
+    zero_counters()
+    for k in (*_MATMULS, "paged_window"):
+        _KERNELS[k]["counter"].shapes = set()
+    t0 = time.perf_counter()
+    out["a"] = _tp_engine_run(engine, prompts, TP_MAX_NEW // 2)
+    stamp("ran_a")
+    out["a"]["scheduler"] = _tp_scheduler(engine, prompts[0],
+                                          out["a"]["tokens"][0][:TP_MAX_NEW // 2])
+    stamp("scheduler_a")
+    out["a"]["weight_bytes"] = _param_bytes(engine.params)
+    out["a"]["kv_heads"] = int(engine.cache.k_pages[0].shape[0])
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    spec14 = scaled_spec(get_spec(DEFAULT_CASCADE[1]), layers=TP_14B_LAYERS)
+    host = _host_copy(_tp_weights(spec14, device, "b"))
+    stamp("host_b")
+    engine, out["build_b"] = _tp_build(spec14, host, mesh, device, kw)
+    del host
+    stamp("built_b")
+    if not engine.tp_mode:
+        fail("tp: the 14B INT4 tier did not take the tensor-parallel path")
+    down = engine.params["layers"][0]["down_proj"]
+    out["b"] = _tp_engine_run(engine, prompts, TP_MAX_NEW)
+    stamp("ran_b")
+    out["b"]["down_proj_local"] = {"packed_rows": int(down.q.shape[0]),
+                                   "scale_rows": int(down.scale.shape[0])}
+    out["seconds"] = time.perf_counter() - t0
+    out["launches"] = read_counters()
+    shapes = {k: _KERNELS[k]["counter"].shapes for k in _MATMULS}
+    shapes["paged_window"] = {(*c[:8], c[8].cpu(), c[9].cpu())
+                              for c in _KERNELS["paged_window"]["counter"].shapes}
+    out["shapes"] = shapes
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+    return out
+
+
+def phase_tp(dev) -> dict:
+    """Tensor parallelism on the card: TP_WORLD ranks on ``dev`` over gloo,
+    started by ``parallel.spawn_ranks``; the forward's collectives on CUDA
+    tensors go through shared host memory (parallel/host_memory.py). (a) 7B
+    INT8 at full width and depth: greedy tokens equal to the tp=1 engine's
+    on the same weights (run here while the ranks start), verify of half
+    the output accepted in full, the scheduler's plain and one-wrong-token
+    requests; (b) 14B grouped INT4 bf16 (TP_14B_LAYERS layers) accepts its
+    own greedy output in full over the prefix cache. Every rank must return
+    the same tokens and launch INT8, INT4, paged decode and paged window.
+    The kernels' shapes of the ranks join the parent's, so that path_shapes
+    holds the kernels to their plain versions at the shard shapes too. Its
+    step times are of collectives through host memory on one card, not a
+    tensor-parallel speed figure. Returns the ranks' summed launches."""
+    from adaptive_sd_tpu_torch.parallel import spawn_ranks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_start = time.time()
+    t0 = time.perf_counter()
+    spec7 = get_spec(DEFAULT_CASCADE[0])
+    rng = np.random.default_rng(12)
+    prompts = [[int(t) for t in rng.integers(1, spec7.vocab_size, n)] for n in TP_PROMPT_LENS]
+    card = f"cuda:{torch.cuda.current_device()}" if dev.type == "cuda" else str(dev)
+    box = {}
+
+    def ranks_main():
+        try:
+            box["ranks"] = spawn_ranks(_tp_rank, TP_WORLD, prompts, t_start,
+                                       devices=[card] * TP_WORLD, timeout_s=600)
+        except BaseException as exc:  # noqa: BLE001 - raised again below
+            box["error"] = exc
+
+    started = threading.Thread(target=ranks_main, daemon=True)
+    started.start()
+    single = TierEngine(spec7, _tp_weights(spec7, dev, "a"), **_tp_kw(dev))
+    single.warmup()
+    tp1 = _tp_engine_run(single, prompts, TP_MAX_NEW // 2)
+    del single
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp1_s = time.perf_counter() - t0
+    started.join()
+    if "error" in box:
+        raise box["error"]
+    ranks = box["ranks"]
+    secs = time.perf_counter() - t0
+    r0 = ranks[0]
+    keys = ("int8_matmul", "int4_matmul_grouped", "paged_decode", "paged_window")
+    emit({"phase": "tp", "seconds": secs, "limit_s": TP_PHASE_LIMIT_S,
+          "backend": r0["backend"], "world": r0["world"], "tp1_reference_s": tp1_s,
+          "ranks": [{"rank": r["rank"], "device": r["device"], "card": r["card"],
+                     "launches": {k: r["launches"][k] for k in keys},
+                     "max_memory_allocated": r["max_memory_allocated"],
+                     "build": {"a": r["build_a"], "b": r["build_b"]},
+                     "timeline": r["timeline"],
+                     "seconds_after_setup": r["seconds"]} for r in ranks],
+          "collectives": f"{r0['collectives']} (all_reduce, all_gather; gloo for the "
+                         f"setup); ring overlap not run (gloo's send/recv move CPU tensors only)",
+          "a": {"model": f"{DEFAULT_CASCADE[0]} x{spec7.n_layers} int8 fused f32, prefix cache",
+                "tokens_equal_tp1": [r["a"]["tokens"] == tp1["tokens"] for r in ranks],
+                "n_acc": r0["a"]["n_acc"], "of": r0["a"]["of"],
+                "continued_same": r0["a"]["continued_same"],
+                "tp1_n_acc": tp1["n_acc"], "scheduler": r0["a"]["scheduler"],
+                "kv_heads_per_rank": r0["a"]["kv_heads"],
+                "weight_bytes_per_rank": r0["a"]["weight_bytes"],
+                "eager_ms_per_step": {"tp1": tp1["ms_per_step"],
+                                      "tp2": r0["a"]["ms_per_step"]},
+                "eager_ms_label": "two ranks on one card, collectives through host memory: "
+                                  "not a TP speed figure"},
+          "b": {"model": f"{DEFAULT_CASCADE[1]} x{TP_14B_LAYERS} of 48 int4 g128 bf16, "
+                         f"prefix cache",
+                "cut": {"layers": [TP_14B_LAYERS, 48]}, "n_acc": r0["b"]["n_acc"],
+                "of": r0["b"]["of"], "continued_same": r0["b"]["continued_same"],
+                "down_proj_local": r0["b"]["down_proj_local"]}})
+    if tp1["n_acc"] != [TP_MAX_NEW // 2] * len(TP_PROMPT_LENS) or not tp1["continued_same"]:
+        fail(f"tp: the tp=1 engine did not accept its own output: {tp1['n_acc']}")
+    for r in ranks:
+        a, b = r["a"], r["b"]
+        if a["tokens"] != tp1["tokens"]:
+            fail(f"tp: rank {r['rank']}'s 7B tokens differ from the tp=1 engine's")
+        if a["tokens"] != r0["a"]["tokens"] or b["tokens"] != r0["b"]["tokens"]:
+            fail(f"tp: rank {r['rank']} returned other tokens than rank 0")
+        if not (a["finite"] and b["finite"]):
+            fail(f"tp: rank {r['rank']} returned non-finite logprobs")
+        for label, run in (("7B tier half", a), ("14B INT4 tier whole", b)):
+            if run["n_acc"] != [run["of"]] * len(TP_PROMPT_LENS) or not run["continued_same"]:
+                fail(f"tp: rank {r['rank']}'s {label} did not accept its own output: "
+                     f"{run['n_acc']}")
+        s = a["scheduler"]
+        if not (s["plain_same"] and s["draft_same"] and s["n_accepted"] == 2):
+            fail(f"tp: rank {r['rank']}'s scheduler case failed: {s}")
+        for label in ("a", "b"):
+            b = r[f"build_{label}"]
+            if b["resident_bytes"] > b["shard_bytes"] + b["kv_cache_bytes"] + TP_BUILD_SLACK:
+                fail(f"tp: rank {r['rank']}'s ({label}) engine keeps more than its shard and "
+                     f"cache on the card: {b}")
+            if b["build_peak_bytes"] > (b["resident_bytes"]
+                                        + TP_BUILD_PIECES * b["largest_piece_bytes"]):
+                fail(f"tp: rank {r['rank']}'s ({label}) engine held more than its shard and "
+                     f"{TP_BUILD_PIECES} pieces on the card while it was built: {b}")
+        _require_launches(f"tp rank {r['rank']}", r["launches"], keys)
+        for k, calls in r["shapes"].items():
+            if _KERNELS[k]["counter"].shapes is not None:
+                _KERNELS[k]["counter"].shapes.update(calls)
+    if secs > TP_PHASE_LIMIT_S:
+        fail(f"tp: the phase took {secs:.1f} s, over its {TP_PHASE_LIMIT_S:.0f} s limit")
+    return {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; refusing to run", file=sys.stderr)
@@ -3014,6 +3327,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["rehearsal"] = timed("rehearsal", phase_rehearsal, dev)
     paths["load"] = timed("load", phase_load, dev)
+    paths["tp"] = timed("tp", phase_tp, dev)
     timed("path_shapes", phase_path_shapes, dev)
     emit({"phase": "wall", "seconds_by_phase": walls, "seconds": sum(walls.values())})
 

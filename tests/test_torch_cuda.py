@@ -997,3 +997,83 @@ def test_concurrent_generates_and_verifies_equal_one_at_a_time(cuda, graphs):
         t.join()
     assert got == alone
     assert (engine.loops.stats()["replays"] > 0) == graphs
+
+
+# what a tensor-parallel engine built from the host tree may keep on the card
+# beyond its weight shard and its KV cache; while it is built, the card may
+# also hold three times the largest piece sent whole (a layer or the lm_head)
+TP_BUILD_SLACK = 64 << 20
+TP_BUILD_PIECES = 3
+
+
+def _tp_rank_7b(rank: int, device) -> dict:
+    """One of two ranks sharing the card over gloo: Qwen2.5-7B widths at 2
+    layers, INT8 fused, f32 activations, prefix cache on; rank 0 first runs
+    the tp=1 engine on the same weights (made from one seed on the card).
+    The tp engine is built from the whole model's host tree, and the card's
+    peak allocation while it is built is recorded."""
+    from adaptive_sd_tpu_torch.models import QWEN25_7B, scaled_spec
+    from adaptive_sd_tpu_torch.models.qwen_tp import tree_to
+    from adaptive_sd_tpu_torch.parallel import build_mesh
+
+    mesh = build_mesh(dp=1, tp=2)
+    spec = scaled_spec(QWEN25_7B, layers=2)
+    params = init_params_quantized(spec, torch.Generator(device=device).manual_seed(7), bits=8,
+                                   device=device, dtype=torch.float32)
+    rng = np.random.default_rng(3)
+    prompts = [[int(t) for t in rng.integers(1, spec.vocab_size, n)] for n in (37, 150)]
+    kw = dict(page_size=128, n_pages=32, device=device, enable_prefix_cache=True,
+              cuda_graphs=False)
+    out = {}
+    if rank == 0:
+        single = TierEngine(spec, params, **kw)
+        out["tp1"] = [o.token_ids.tolist() for o in single.generate(prompts, max_new=16)]
+        del single
+    host = tree_to(params, "cpu")
+    out["whole_bytes"] = D._param_bytes(host)
+    out["piece_bytes"] = max(D._param_bytes(p) for p in [*host["layers"], host["lm_head"]])
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        TierEngine(spec, host, mesh=mesh, **{**kw, "cuda_graphs": True})
+        out["refused"] = ""
+    except ValueError as exc:
+        out["refused"] = str(exc)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    engine = TierEngine(spec, host, mesh=mesh, **kw)
+    out["build_peak"] = torch.cuda.max_memory_allocated(device) - base
+    out["resident"] = torch.cuda.memory_allocated(device) - base
+    out["shard_bytes"] = D._param_bytes(engine.params)
+    out["cache_bytes"] = engine.cache.memory_bytes()
+    counters = (MQ.int8_matmul_counter, A.paged_decode_counter, A.paged_window_counter)
+    before = [c.launches for c in counters]
+    outs = engine.generate(prompts, max_new=16)
+    ver = engine.verify_continue(prompts, [o.token_ids[:8].tolist() for o in outs], max_new=16)
+    out.update(tp_mode=engine.tp_mode, tokens=[o.token_ids.tolist() for o in outs],
+               n_acc=[int(a) for _, a in ver],
+               continued=[v.token_ids.tolist() for v, _ in ver],
+               launches=[c.launches - b for c, b in zip(counters, before)])
+    return out
+
+
+def test_tp_two_ranks_on_one_card_equal_tp1(cuda):
+    """Tensor parallelism at 7B widths, two ranks sharing the card over gloo:
+    every rank's greedy tokens equal the tp=1 engine's, verify of half the
+    output is accepted in full, the kernels ran on each rank, CUDA graphs
+    over a gloo group are refused, and a rank built from the host tree keeps
+    no more on the card than its shard and its KV cache (and held no more
+    than three layers' worth beside them while it was built)."""
+    from adaptive_sd_tpu_torch.parallel import spawn_ranks
+
+    ranks = spawn_ranks(_tp_rank_7b, 2, devices=["cuda:0", "cuda:0"], timeout_s=300)
+    for r in ranks:
+        assert r["tp_mode"]
+        assert r["tokens"] == ranks[0]["tp1"]
+        assert r["n_acc"] == [8, 8] and r["continued"] == r["tokens"]
+        assert all(n > 0 for n in r["launches"]), r["launches"]
+        assert "gloo" in r["refused"] and "cuda_graphs=False" in r["refused"]
+        assert r["shard_bytes"] < 0.6 * r["whole_bytes"]
+        assert r["resident"] <= r["shard_bytes"] + r["cache_bytes"] + TP_BUILD_SLACK, r
+        assert r["build_peak"] <= r["resident"] + TP_BUILD_PIECES * r["piece_bytes"], r

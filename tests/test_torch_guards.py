@@ -29,7 +29,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 for script in ("torch_real_smoke", "torch_train_predictor", "torch_int4_agreement_probe",
-               "torch_trained_cascade_eval", "torch_load_bench", "torch_sched_bench"):
+               "torch_trained_cascade_eval", "torch_load_bench", "torch_sched_bench",
+               "torch_gloo_cuda_probe"):
     spec = importlib.util.spec_from_file_location(script, f"scripts/{script}.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 absent = ("jax", "adaptive_sd_tpu", "safetensors", "optax", "sklearn", "transformers", "yaml")
@@ -47,6 +48,9 @@ missing = sorted({"adaptive_sd_tpu_torch.engine.scheduler", "adaptive_sd_tpu_tor
                   "adaptive_sd_tpu_torch.cascade.cost_optimizer",
                   "adaptive_sd_tpu_torch.cascade.calibration", "adaptive_sd_tpu_torch.cascade.router",
                   "adaptive_sd_tpu_torch.policy.regret", "adaptive_sd_tpu_torch.policy.lambda_opt",
+                  "adaptive_sd_tpu_torch.parallel.mesh", "adaptive_sd_tpu_torch.parallel.overlap",
+                  "adaptive_sd_tpu_torch.parallel.host_memory",
+                  "adaptive_sd_tpu_torch.ops.sharded", "adaptive_sd_tpu_torch.models.qwen_tp",
                   *(f"adaptive_sd_tpu_torch.evalx.{m}" for m in (
                       "workload", "oracle", "walk", "quality", "stats", "datasets", "sweep",
                       "baselines"))} - set(names))
@@ -78,6 +82,18 @@ def test_chip_smoke_and_package_root_import_no_http_stack():
     root nor chip_smoke.py pulls it in."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _IMPORT_SMOKE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_tp_rank_bodies_import_no_jax():
+    """The tensor-parallel tests' rank bodies are imported by every spawned
+    rank: they must not pull in JAX or the JAX package."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    code = ("import sys, tests.torch_tp_workers; print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'adaptive_sd_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
