@@ -10,9 +10,11 @@ checkpoint loader and writer, tiny-LM training), ``engine``
 continuous-batching scheduler and its C++ lane table), ``predict`` (the
 quality predictor and its on-device inline head), ``policy`` (the DP
 stopping rule and its tensor twin), ``cascade`` (text stages, response
-cache, ``AdaptiveCascadePipeline``, ``ScheduledCascadePipeline``), ``config``,
-``utils``, ``minimal`` and ``serve`` (the aiohttp API; import it explicitly,
-it alone needs ``aiohttp`` and ``pydantic``).
+cache, ``AdaptiveCascadePipeline``, ``ScheduledCascadePipeline``), ``config``
+(with its own YAML reader and writer), ``utils``, ``minimal`` and ``serve``
+(the HTTP API on the standard library: an asyncio server and request
+validation written here, since the card's machine has neither aiohttp nor
+pydantic).
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; on CPU
 tensors every kernel wrapper takes its plain PyTorch version.

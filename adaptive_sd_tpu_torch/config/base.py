@@ -6,10 +6,10 @@ to_dict/save_yaml, deep merge, validate; ConfigManager with YAML→env→default
 fallback and caching).
 
 Own copy for the PyTorch port of ``adaptive_sd_tpu/config/base.py``. The
-one departure: the card's machine has no PyYAML, so ``yaml`` is imported
-only where a YAML file is read or written (``from_yaml``, ``save_yaml`` and
-the ``ConfigManager`` that reads ``<name>.yaml``); dicts, JSON and the
-``ADAPTIVE_SD_`` environment parsing work without it.
+one departure: the card's machine has no PyYAML, so YAML files are read and
+written by the port's own reader and writer (``config/yaml_lite.py``), which
+give ``yaml.safe_load``'s values on the subset the configs use and raise
+``ConfigurationError`` with the line number on anything else.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from dataclasses import dataclass, fields, is_dataclass
 from typing import Any, Optional, Type, TypeVar, get_args, get_origin
 
 from ..core.exceptions import ConfigurationError
+from . import yaml_lite
 
 ENV_PREFIX = "ADAPTIVE_SD_"
 T = TypeVar("T", bound="BaseConfig")
@@ -97,12 +98,11 @@ class BaseConfig:
         p = pathlib.Path(path)
         if not p.exists():
             raise ConfigurationError(f"config file not found: {p}")
-        import yaml
-
         try:
-            data = yaml.safe_load(p.read_text()) or {}
-        except yaml.YAMLError as exc:
-            raise ConfigurationError(f"bad YAML in {p}: {exc}") from exc
+            data = yaml_lite.load(p.read_text()) or {}
+        except ConfigurationError as exc:
+            raise ConfigurationError(f"bad YAML in {p}: {exc.message}",
+                                     details=exc.details) from exc
         return cls.from_dict(data)
 
     @classmethod
@@ -125,11 +125,9 @@ class BaseConfig:
         return dataclasses.asdict(self)
 
     def save_yaml(self, path: str | pathlib.Path) -> None:
-        import yaml
-
         p = pathlib.Path(path)
         p.parent.mkdir(parents=True, exist_ok=True)
-        p.write_text(yaml.safe_dump(self.to_dict(), sort_keys=False))
+        p.write_text(yaml_lite.dump(self.to_dict()))
 
     # -- merge / validate ----------------------------------------------------
     def merge(self: T, other: dict) -> T:

@@ -10,7 +10,8 @@ with ``block_until_ready`` brackets.
 Own copy for the PyTorch port of ``adaptive_sd_tpu/utils/profiler.py``:
 the ``run`` callable a tier is timed through synchronises the card itself
 (``torch.cuda.synchronize()`` at its end), as the JAX one blocks until ready;
-``yaml`` is imported only by :meth:`CostProfiler.write_back_costs`.
+:meth:`CostProfiler.write_back_costs` reads and writes the cascade YAML with
+the port's own reader and writer (``config/yaml_lite.py``), not PyYAML.
 """
 
 from __future__ import annotations
@@ -198,14 +199,14 @@ class CostProfiler:
         reference cost_profiler.py:562-597)."""
         import shutil
 
-        import yaml
+        from ..config import yaml_lite
 
         p = pathlib.Path(config_path)
         ratios = self.cost_ratios(tier_names)
-        cfg = yaml.safe_load(p.read_text()) if p.exists() else {}
+        cfg = yaml_lite.load(p.read_text()) if p.exists() else {}
         shutil.copy(p, p.with_suffix(p.suffix + ".bak")) if p.exists() else None
         stages = cfg.setdefault("stages", [{} for _ in tier_names])
         for st, name, ratio, in zip(stages, tier_names, ratios):
             st["name"] = st.get("name", name)
             st["cost_per_token"] = round(float(ratio), 4)
-        p.write_text(yaml.safe_dump(cfg, sort_keys=False))
+        p.write_text(yaml_lite.dump(cfg))

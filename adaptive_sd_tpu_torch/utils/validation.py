@@ -5,7 +5,8 @@ String/Numeric/List/Dict validators, validate_prompt with injection checks,
 validate_config schema walker, path/JSON/YAML validators).
 
 Own copy for the PyTorch port of ``adaptive_sd_tpu/utils/validation.py``;
-``yaml`` is imported only by :func:`validate_yaml`.
+:func:`validate_yaml` reads with the port's own YAML reader
+(``config/yaml_lite.py``), not PyYAML.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import pathlib
 import re
 from typing import Any, Callable, Optional, Sequence
 
-from ..core.exceptions import ValidationError
+from ..core.exceptions import ConfigurationError, ValidationError
 
 
 class Validator:
@@ -185,9 +186,9 @@ def validate_json(text: str) -> Any:
 
 
 def validate_yaml(text: str) -> Any:
-    import yaml
+    from ..config.yaml_lite import load
 
     try:
-        return yaml.safe_load(text)
-    except yaml.YAMLError as exc:
-        raise ValidationError(f"invalid YAML: {exc}") from exc
+        return load(text)
+    except ConfigurationError as exc:
+        raise ValidationError(f"invalid YAML: {exc.message}") from exc

@@ -93,6 +93,24 @@ Phases, one JSON line each; any failure exits non-zero:
    SCHED_TOKENS_CRC; the loop's time a step, its device busy time and
    the idle share of a profiled loop (busy time over that loop's own span),
    tokens/s, capture seconds per graph and the graphs' pool bytes.
+   http: the port's server (``serve.build_app``, the standard library's
+   asyncio) on 127.0.0.1, driven through ``http.client``. (c) first:
+   ``scripts/torch_serve.py --synthetic --scheduled`` starts as a process
+   (it reads configs/serving.yaml with the port's YAML reader and starts the
+   dynamic cost optimizer). Meanwhile (b) ``ScheduledCascadePipeline`` over
+   the W8A8 tier and the INT4 tiers answers eight concurrent /generate and a
+   stream, each answer equal to the same request sent alone, and (a)
+   ``AdaptiveCascadePipeline`` over the 7B INT8, 14B INT4 and 32B INT4
+   tiers behind the server answers /health, five greedy /generate (one
+   stopped at tier 0 by a lambda override, one escalated), a response-cache
+   hit, /batch_generate of four, two streams, the admin routes, a 422 and a
+   413, each answer equal to ``process_request`` (each stream to
+   ``stream_request``) in process on a twin pipeline over the same engines;
+   then ``scripts/torch_evaluate.py --server`` against it. Then the process
+   answers three requests and /stats and must exit 0 on SIGTERM within
+   HTTP_CHILD_EXIT_S, with no traceback. Last, with nothing else at work,
+   (a)'s /generate requests once more on fresh pipelines, over HTTP and in
+   process in turn: each route's seconds over HTTP beside in process.
 7. step: one decode step of each tier, its launches per kernel, its time and
    the device's busy time by kernel (torch.profiler), and the seconds of a
    512-token prefill and its device time by kernel; the INT4 tiers also with
@@ -139,9 +157,10 @@ Phases, one JSON line each; any failure exits non-zero:
    every one of them (the tp ranks' shard shapes included).
 
 The kernels' launch counters are zeroed just before each of the paths 4, 5,
-6, 8 and 9 (the scheduler, checkpoint, scheduled_pipeline, routing and graphs
-paths too; a graph's replay adds the launches its capture recorded; the tp
-path's counts are the ranks' sum)
+6, 8 and 9 (the scheduler, checkpoint, scheduled_pipeline, routing, graphs
+and http paths too; a graph's replay adds the launches its capture recorded;
+the tp path's counts are the ranks' sum; the http path counts the requests
+sent over HTTP, not the in-process runs they are held against)
 and read just after;
 every kernel of a path must have been launched. The scheduled_pipeline path
 counts the scheduled plane's runs only, not the fused runs it is held against.
@@ -157,8 +176,10 @@ without a CUDA device.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import gc
+import http.client
 import importlib.util
 import itertools
 import json
@@ -166,6 +187,8 @@ import math
 import os
 import pathlib
 import resource
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -185,6 +208,7 @@ from adaptive_sd_tpu_torch.cascade import (
     StageManager,
     calibrate_costs,
 )
+from adaptive_sd_tpu_torch.core.device import describe_device
 from adaptive_sd_tpu_torch.core.types import RequestContext
 from adaptive_sd_tpu_torch.engine import ContinuousBatchingScheduler, TierEngine
 from adaptive_sd_tpu_torch.engine import native_bridge
@@ -228,9 +252,11 @@ from adaptive_sd_tpu_torch.ops import _kernels
 from adaptive_sd_tpu_torch.ops import attention as A
 from adaptive_sd_tpu_torch.ops import matmul_q as MQ
 from adaptive_sd_tpu_torch.ops.quant import QuantizedTensor
+from adaptive_sd_tpu_torch.serve import BackgroundServer, build_app
 from adaptive_sd_tpu_torch.utils import TorchProfilerTrace
 from adaptive_sd_tpu_torch.utils.metrics import global_metrics
 
+REPO = pathlib.Path(__file__).resolve().parent
 # when this module's imports were done (a spawned tp rank's timeline starts
 # its own steps from here)
 _IMPORTED_AT = time.time()
@@ -2450,6 +2476,479 @@ def phase_graphs(dev, tier0, int4_engines, tier0_w8a8) -> dict:
 
 
 
+# -- http: the port's server on the card ---------------------------------------------
+
+HTTP_LENS = (41, 160, 330, 500, 90)       # words of the five /generate prompts
+HTTP_BATCH_LENS = (120, 260)              # and of the batch's two new prompts
+HTTP_SCHED_LENS = (41, 160, 330, 500, 90, 220, 410, 64)
+HTTP_STOP = 100.0                          # the largest lambda override: stops at tier 0
+HTTP_CLIMB = 0.05                          # one that makes quality worth the larger tiers
+HTTP_STREAM_NEW = 8
+HTTP_SCHED_NEW = 16
+HTTP_CHILD_WAIT_S = 120.0
+HTTP_CHILD_EXIT_S = 10.0
+HTTP_EVAL = ("--lambdas", "3.0", "100.0", "--datasets", "gsm8k-style", "--n-per-dataset", "2")
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class _HTTPClient:
+    """One keep-alive ``http.client`` connection: ``call`` sends a request and
+    returns (status, body, seconds), the body parsed by its content type
+    (JSON; SSE as ``(chunks, done event)``; else text)."""
+
+    def __init__(self, port: int) -> None:
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+
+    def call(self, method: str, path: str, payload=None, raw: bytes = None) -> tuple:
+        body = raw if raw is not None else (
+            None if payload is None else json.dumps(payload).encode())
+        t0 = time.perf_counter()
+        self.conn.request(method, path, body=body,
+                          headers={"Content-Type": "application/json"} if body else {})
+        r = self.conn.getresponse()
+        data = r.read()
+        secs = time.perf_counter() - t0
+        ctype = r.headers.get("Content-Type", "")
+        if ctype.startswith("application/json"):
+            out = json.loads(data)
+        elif ctype.startswith("text/event-stream"):
+            chunks, done = [], None
+            for block in data.decode().strip().split("\n\n"):
+                lines = block.split("\n")
+                if lines[0] == "event: done":
+                    done = json.loads(lines[1][len("data: "):])
+                else:
+                    chunks.append(json.loads(lines[0][len("data: "):]))
+            out = (chunks, done)
+        else:
+            out = data.decode()
+        return r.status, out, secs
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def _expect_status(what: str, status: int, want: int, body) -> None:
+    if status != want:
+        fail(f"http {what}: status {status}, want {want}: {str(body)[:300]}")
+
+
+def _start_serve_child(port: int, log_dir: pathlib.Path, dev):
+    """``scripts/torch_serve.py --synthetic --scheduled`` on ``dev``, its
+    output in files (a pipe could fill and stall it)."""
+    out = open(log_dir / "serve.out", "w")
+    err = open(log_dir / "serve.err", "w")
+    child = subprocess.Popen(
+        [sys.executable, str(REPO / "scripts" / "torch_serve.py"), "--synthetic", "--scheduled",
+         "--host", "127.0.0.1", "--port", str(port), "--device", dev.type],
+        cwd=REPO, stdout=out, stderr=err)
+    return child, out, err
+
+
+def _http_serve_child(child, port: int, log_dir: pathlib.Path, t_start: float) -> dict:
+    """Wait for the child's /health, send three requests, read /stats, then
+    SIGTERM: it must exit 0 within HTTP_CHILD_EXIT_S with no traceback."""
+    def err_tail():
+        return (log_dir / "serve.err").read_text()[-3000:]
+
+    while True:
+        if child.poll() is not None:
+            fail(f"http (c): the serve script exited with {child.returncode}: {err_tail()}")
+        if time.perf_counter() - t_start > HTTP_CHILD_WAIT_S:
+            fail(f"http (c): no /health within {HTTP_CHILD_WAIT_S} s: {err_tail()}")
+        try:
+            with socket.create_connection(("127.0.0.1", port), timeout=1):
+                pass
+            client = _HTTPClient(port)
+            status, health, _ = client.call("GET", "/health")
+            if status == 200:
+                break
+            client.close()
+        except OSError:
+            pass
+        time.sleep(0.5)
+    ready_s = time.perf_counter() - t_start
+    rows = []
+    for i, prompt in enumerate(("What is 2+2?", "Explain gravity briefly.",
+                                "Rigorously prove the optimal bound, step by step.")):
+        status, body, secs = client.call("POST", "/generate",
+                                         {"prompt": prompt, "max_tokens": 16,
+                                          "request_id": f"smoke_child_{i}"})
+        _expect_status(f"(c) /generate {i}", status, 200, body)
+        rows.append({"final_stage": body["final_stage"], "seconds": secs})
+    status, stats, _ = client.call("GET", "/stats")
+    _expect_status("(c) /stats", status, 200, stats)
+    client.close()
+    if len(stats["schedulers"]) != 3 or stats["total_requests"] != 3:
+        fail(f"http (c): /stats has {len(stats['schedulers'])} scheduler records and "
+             f"{stats['total_requests']} requests")
+    t0 = time.perf_counter()
+    child.send_signal(signal.SIGTERM)
+    try:
+        rc = child.wait(HTTP_CHILD_EXIT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"http (c): the serve script did not exit within {HTTP_CHILD_EXIT_S} s of SIGTERM")
+    err = (log_dir / "serve.err").read_text()
+    if rc != 0 or "Traceback" in err:
+        fail(f"http (c): the serve script exited with {rc}: {err[-3000:]}")
+    for line in ("dynamic cost optimizer started", "serving on http://127.0.0.1"):
+        if line not in err:
+            fail(f"http (c): the serve script's log lacks {line!r}: {err[-3000:]}")
+    return {"ready_s": ready_s, "requests": rows, "exit_s": time.perf_counter() - t0,
+            "health_stages": health["stages"],
+            "completed": sum(s["completed"] for s in stats["schedulers"])}
+
+
+def _same_answer(what: str, http_body: dict, res) -> None:
+    want = {"text": res.text, "final_stage": res.final_stage, "cost": res.total_cost}
+    got = {k: http_body[k] for k in want}
+    if got != want:
+        fail(f"http {what}: the answer over HTTP {got} differs from in process {want}")
+
+
+def phase_http(dev, tier0, int4_engines, tier0_w8a8) -> dict:
+    """The port's HTTP server on the card. (a) ``AdaptiveCascadePipeline``
+    over 7B INT8 -> 14B INT4 -> 32B INT4 behind ``build_app`` on 127.0.0.1:
+    /health, five greedy /generate (one stopped at tier 0 by a large lambda
+    override, one escalated by a small one) and one repeated from the
+    response cache, /batch_generate of four, two /generate_stream, the admin
+    and stats routes, a 422 and a 413; each /generate answer equal to the
+    same request's ``process_request`` in process (a fresh pipeline on the
+    same engines, replayed in the same order, cache off), each stream equal
+    to ``stream_request`` in process. Then ``scripts/torch_evaluate.py
+    --server`` against it. (b) ``ScheduledCascadePipeline`` over the W8A8
+    tier and the INT4 tiers: eight concurrent /generate from threads and a
+    stream; each answer equal to the same request sent alone. (c)
+    ``scripts/torch_serve.py --synthetic --scheduled`` as a process, which
+    reads configs/serving.yaml with the port's YAML reader: started first,
+    so that it starts while (b) and (a) run; then its requests and SIGTERM.
+    Last, with no other process at work, (a)'s /generate requests once more
+    on fresh twin pipelines, over HTTP and in process in turn: the phase's
+    HTTP overhead. Returns the launch counts of the HTTP-driven work of (a)
+    and (b)."""
+    t_phase = time.perf_counter()
+    log_dir = pathlib.Path(tempfile.mkdtemp(prefix="smoke_http_"))
+    child_port = _free_port()
+    child, child_out, child_err = _start_serve_child(child_port, log_dir, dev)
+    try:
+        return _phase_http(dev, tier0, int4_engines, tier0_w8a8, child, child_port, log_dir,
+                           t_phase)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(30)
+        child_out.close()
+        child_err.close()
+
+
+def _phase_http(dev, tier0, int4_engines, tier0_w8a8, child, child_port, log_dir,
+                t_phase) -> dict:
+    engines = [tier0, *int4_engines]
+    vocab = tier0.spec.vocab_size
+    tokenize = _tokenize(vocab)
+    rng = np.random.default_rng(13)
+    texts = [_text_prompt(rng, n) for n in HTTP_LENS]
+    base = dict(max_new_tokens=MAX_NEW, prior_quality=PIPE_PRIORS)
+
+    def stages(tiers):
+        return StageManager([
+            EngineTextStage(e, tokenize, _detokenize, name=e.spec.name,
+                            cost_per_token=PIPE_COSTS[i], stage_index=i,
+                            spec_topk=0 if i == len(tiers) - 1 else 64)
+            for i, e in enumerate(tiers)])
+
+    def walk_predictor():
+        # rates every draft low, so that requests climb unless a large
+        # lambda override stops them (the pipeline phase's batch walk)
+        p = MLPQualityPredictor(n_stages=3, seed=10)
+        p.group_calibration = {(k, 0): (1.0, -5.0) for k in range(3)}
+        return p
+
+    walk = dict(lam=0.3, min_draft_quality_for_verify=0.0, direct_entry=False,
+                allow_tier_skip=False, **base)
+    launches = dict.fromkeys(read_counters(), 0)
+
+    def count():
+        for k, n in read_counters().items():
+            launches[k] += n
+
+    routes: dict = {}
+
+    def timed_route(route, http_s, inproc_s=None, **more):
+        routes.setdefault(route, []).append(
+            {"http_s": http_s, "in_process_s": inproc_s,
+             "overhead_s": None if inproc_s is None else http_s - inproc_s, **more})
+
+    # -- (b) the scheduled pipeline -----------------------------------------------------
+    sched_texts = [_text_prompt(np.random.default_rng(14), n) for n in HTTP_SCHED_LENS]
+    sched_reqs = [{"prompt": t, "max_tokens": HTTP_SCHED_NEW, "request_id": f"smoke_http_s{i}",
+                   **({"lambda_override": HTTP_STOP} if i % 2 else {})}
+                  for i, t in enumerate(sched_texts)]
+    lanes = dict(max_batch=SCHED_LANES, max_context=SCHED_CONTEXT, scan_steps=SCHED_SCAN)
+    sched = ScheduledCascadePipeline(stages([tier0_w8a8, *int4_engines]), walk_predictor(),
+                                     PipelineConfig(**{**walk, "enable_caching": False}), **lanes)
+    server = BackgroundServer(build_app(sched))
+    try:
+        zero_counters()
+        together: list = [None] * len(sched_reqs)
+        barrier = threading.Barrier(len(sched_reqs))
+
+        def send(i):
+            c = _HTTPClient(server.port)
+            try:
+                barrier.wait(60)
+                together[i] = c.call("POST", "/generate", sched_reqs[i])
+            finally:
+                c.close()
+
+        threads = [threading.Thread(target=send, args=(i,)) for i in range(len(sched_reqs))]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        concurrent_s = time.perf_counter() - t0
+        client = _HTTPClient(server.port)
+        status, stream_body, stream_s = client.call(
+            "POST", "/generate_stream", {"prompt": sched_texts[4], "max_tokens": HTTP_SCHED_NEW})
+        _expect_status("(b) /generate_stream", status, 200, stream_body)
+        alone = []
+        for i, req in enumerate(sched_reqs):
+            if together[i] is None:
+                fail(f"http (b): concurrent request {i} got no answer")
+            _expect_status(f"(b) concurrent /generate {i}", together[i][0], 200, together[i][1])
+            status, body, secs = client.call("POST", "/generate", req)
+            _expect_status(f"(b) /generate {i} alone", status, 200, body)
+            alone.append((body, secs))
+        status, sched_stats, _ = client.call("GET", "/stats")
+        client.close()
+        count()
+    finally:
+        server.close()
+        sched.shutdown()
+    parted = [i for i, ((_, cb, _), (ab, _)) in enumerate(zip(together, alone))
+              if {k: cb[k] for k in ("text", "final_stage", "cost")}
+              != {k: ab[k] for k in ("text", "final_stage", "cost")}]
+    if parted:
+        fail(f"http (b): concurrent answers {parted} differ from the same requests sent alone: "
+             f"{[(together[i][1]['final_stage'], alone[i][0]['final_stage']) for i in parted]}")
+    completed = sum(s["completed"] for s in sched_stats["schedulers"])
+    if len(sched_stats["schedulers"]) != 3 or completed < len(sched_reqs):
+        fail(f"http (b): /stats has {len(sched_stats['schedulers'])} scheduler records and "
+             f"{completed} completions")
+    chunks, done = stream_body
+    if done is None or len(chunks) != done["chunks"]:
+        fail(f"http (b): the stream gave {len(chunks)} chunks, done {done}")
+    for i, ((_, body, secs), (_, alone_s)) in enumerate(zip(together, alone)):
+        timed_route("POST /generate (scheduled, 8 concurrent)", secs)
+        timed_route("POST /generate (scheduled, alone)", alone_s)
+    timed_route("POST /generate_stream (scheduled)", stream_s)
+    emit({"phase": "http_scheduled", "concurrent_s": concurrent_s, "completed": completed,
+          "final_stages": [cb["final_stage"] for _, cb, _ in together],
+          "concurrent_http_s": [secs for _, _, secs in together],
+          "alone_http_s": [secs for _, secs in alone], "stream_s": stream_s,
+          "since_phase_start_s": time.perf_counter() - t_phase})
+
+    # -- (a) the fused pipeline ---------------------------------------------------------
+    generate = [{"prompt": texts[0], "max_tokens": MAX_NEW, "lambda_override": HTTP_STOP,
+                 "request_id": "smoke_http_0"},
+                {"prompt": texts[1], "max_tokens": MAX_NEW, "lambda_override": HTTP_CLIMB,
+                 "request_id": "smoke_http_1"},
+                {"prompt": texts[2], "max_tokens": MAX_NEW, "request_id": "smoke_http_2"},
+                {"prompt": texts[3], "max_tokens": MAX_NEW, "request_id": "smoke_http_3"},
+                {"prompt": texts[4], "max_tokens": MAX_NEW, "lambda_override": HTTP_STOP,
+                 "request_id": "smoke_http_4"}]
+    batch = {"prompts": [texts[1], texts[3], *(_text_prompt(rng, n) for n in HTTP_BATCH_LENS)],
+             "max_tokens": MAX_NEW}
+    streams = [{"prompt": texts[2], "max_tokens": HTTP_STREAM_NEW, "lambda_override": HTTP_STOP},
+               {"prompt": texts[4], "max_tokens": HTTP_STREAM_NEW}]
+    served = AdaptiveCascadePipeline(stages(engines), walk_predictor(), PipelineConfig(**walk))
+    # the same requests in process: a fresh pipeline over the same engines, each
+    # request right after its HTTP twin (so both pipelines see one order), cache off
+    twin = AdaptiveCascadePipeline(stages(engines), walk_predictor(),
+                                   PipelineConfig(**{**walk, "enable_caching": False}))
+    server = BackgroundServer(build_app(served))
+    client = _HTTPClient(server.port)
+
+    def in_process(req, rid):
+        return RequestContext(prompt=req["prompt"], max_tokens=req["max_tokens"],
+                              lambda_override=req.get("lambda_override"), request_id=rid)
+
+    try:
+        zero_counters()
+        status, health, secs = client.call("GET", "/health")
+        _expect_status("/health", status, 200, health)
+        timed_route("GET /health", secs)
+        bodies = []
+        for i, req in enumerate(generate):
+            status, body, http_s = client.call("POST", "/generate", req)
+            _expect_status(f"/generate {i}", status, 200, body)
+            count()
+            res, secs = _call(twin.process_request, in_process(req, f"smoke_http_inproc_{i}"))
+            _same_answer(f"/generate {i}", body, res)
+            timed_route("POST /generate (first run)", http_s, secs)
+            bodies.append(body)
+            zero_counters()
+        status, again, secs = client.call("POST", "/generate", generate[0])
+        _expect_status("/generate (repeated)", status, 200, again)
+        timed_route("POST /generate (cached)", secs)
+        count()
+        zero_counters()
+        status, batch_body, http_s = client.call("POST", "/batch_generate", batch)
+        _expect_status("/batch_generate", status, 200, batch_body)
+        count()
+        _, secs = _call(twin.batch_process, [RequestContext(prompt=p, max_tokens=MAX_NEW)
+                                             for p in batch["prompts"]])
+        timed_route("POST /batch_generate", http_s, secs)
+        streamed = []
+        for i, req in enumerate(streams):
+            zero_counters()
+            status, (chunks, done), http_s = client.call("POST", "/generate_stream", req)
+            _expect_status(f"/generate_stream {i}", status, 200, (chunks, done))
+            count()
+            local, secs = _call(lambda: list(twin.stream_request(in_process(req, None))))
+            timed_route("POST /generate_stream", http_s, secs)
+            if (done is None or len(chunks) != done["chunks"] or "".join(chunks) != "".join(
+                    local[:-1]) or done["final_stage"] != local[-1]["final_stage"]):
+                fail(f"http: stream {i} over HTTP ({len(chunks)} chunks, done {done}) differs "
+                     f"from in process ({len(local) - 1} chunks, {local[-1]})")
+            streamed.append(done)
+        zero_counters()
+        status, lam_body, secs = client.call("POST", "/update_lambda", {"lambda_value": 0.5})
+        _expect_status("/update_lambda", status, 200, lam_body)
+        timed_route("POST /update_lambda", secs)
+        got = {}
+        for path, fn in (("/stats", twin.get_stats), ("/models", twin.stages.info),
+                         ("/cache_stats", twin.cache.stats),
+                         ("/metrics", lambda: global_metrics().export_metrics("prometheus"))):
+            status, got[path], http_s = client.call("GET", path)
+            _expect_status(path, status, 200, got[path])
+            _, secs = _call(fn)
+            timed_route(f"GET {path}", http_s, secs)
+        status, body, _ = client.call("POST", "/generate", {"prompt": "   "})
+        _expect_status("/generate (blank prompt)", status, 422, body)
+        if body != {"error": "Value error, prompt must not be blank"}:
+            fail(f"http: the 422 body is {body}")
+        status, body, _ = client.call("POST", "/generate", raw=json.dumps(
+            {"prompt": "x" * (5 << 20)}).encode())
+        _expect_status("/generate (5 MiB body)", status, 413, body)
+        count()
+    finally:
+        client.close()
+        twin.shutdown()
+    if not any(b["final_stage"] == 0 for b in bodies):
+        fail(f"http: no /generate stopped at stage 0: {[b['final_stage'] for b in bodies]}")
+    if not any(len(b["acceptance_probs"]) >= 2 for b in bodies):
+        fail("http: no /generate escalated")
+    if not again["cached"] or again["text"] != bodies[0]["text"] or bodies[0]["cached"]:
+        fail(f"http: the repeated request was not answered from the cache: {again}")
+    if len(batch_body["results"]) != 4 or any(r["error"] for r in batch_body["results"]):
+        fail(f"http: /batch_generate gave {batch_body}")
+    if "prefix_kv" not in got["/cache_stats"] or "requests_total" not in got["/metrics"]:
+        fail(f"http: /cache_stats or /metrics lacks its content: {got['/cache_stats']}")
+    if lam_body != {"lambda": 0.5} or got["/stats"]["total_requests"] < 10:
+        fail(f"http: /update_lambda gave {lam_body}, /stats {got['/stats']['total_requests']} "
+             f"requests")
+
+    # scripts/torch_evaluate.py --server against server (a)
+    evaluate = _load_script("torch_evaluate")
+    eval_out = log_dir / "lambda_sweep.json"
+    zero_counters()
+    t0 = time.perf_counter()
+    evaluate.server_sweep(evaluate.parse_args(["--server", server.url, *HTTP_EVAL,
+                                               "--out", str(eval_out)]))
+    eval_s = time.perf_counter() - t0
+    count()
+    server.close()
+    served.shutdown()
+    sweep = json.loads(eval_out.read_text())
+    if len(sweep) != 2 or any(p["server_stats"]["total_requests"] != 2 for p in sweep):
+        fail(f"http: the evaluate twin's sweep is {sweep}")
+
+    # -- (c) the serve script, started first: its answers, then SIGTERM ------------------------
+    child_row = _http_serve_child(child, child_port, log_dir, t_phase)
+    emit({"phase": "http_serve_script", **child_row,
+          "since_phase_start_s": time.perf_counter() - t_phase})
+
+    # -- the timings of (a), once nothing else is at work: three fresh pipelines
+    # on the warm engines (loop buckets and prefix pages made above) take each
+    # /generate in turn: over HTTP (the server runs it in its loop's executor),
+    # in process on this thread, and in process on one worker thread, which
+    # parts the server's own cost from that of running off the main thread.
+    # Not counted (in-process runs interleave).
+    def fresh(**cfg):
+        return AdaptiveCascadePipeline(stages(engines), walk_predictor(),
+                                       PipelineConfig(**{**walk, **cfg}))
+
+    served, twin, twin_thread = fresh(), fresh(enable_caching=False), fresh(enable_caching=False)
+    server = BackgroundServer(build_app(served))
+    client = _HTTPClient(server.port)
+    worker = concurrent.futures.ThreadPoolExecutor(1)
+    ways = ("in_process", "in_thread", "http")
+    try:
+        for i, req in enumerate(generate):
+            timing, res = {}, {}
+            for how in ways[i % 3:] + ways[:i % 3]:
+                if how == "http":
+                    status, body, timing[how] = client.call(
+                        "POST", "/generate", {**req, "request_id": f"smoke_http_t{i}"})
+                    _expect_status(f"/generate {i} (timing)", status, 200, body)
+                elif how == "in_process":
+                    res[how], timing[how] = _call(twin.process_request,
+                                                  in_process(req, f"smoke_http_inproc_t{i}"))
+                else:
+                    res[how], timing[how] = worker.submit(
+                        _call, twin_thread.process_request,
+                        in_process(req, f"smoke_http_thread_t{i}")).result()
+            for how, r in res.items():
+                _same_answer(f"/generate {i} (timing, {how})", body, r)
+            timed_route("POST /generate", timing["http"], timing["in_process"],
+                        in_thread_s=timing["in_thread"])
+    finally:
+        worker.shutdown()
+        client.close()
+        server.close()
+        for pipe in (served, twin, twin_thread):
+            pipe.shutdown()
+
+    _require_launches("http", launches, ("int8_matmul", "int4_matmul_grouped", "w8a8_matmul",
+                                         "paged_decode", "paged_window"))
+    errors = _error_metrics()
+    if errors:
+        fail(f"http: a stage or a request failed: {errors}")
+    gen = routes["POST /generate"]
+    over = sorted(r["overhead_s"] for r in gen)
+    over_thread = sorted(r["http_s"] - r["in_thread_s"] for r in gen)
+    card = describe_device(dev)
+    emit({"phase": "http", "routes": routes,
+          "generate_http_s": {"p50": float(np.median([r["http_s"] for r in gen])),
+                              "max": max(r["http_s"] for r in gen)},
+          "generate_in_process_s": {"p50": float(np.median([r["in_process_s"] for r in gen])),
+                                    "max": max(r["in_process_s"] for r in gen)},
+          "generate_in_thread_s": {"p50": float(np.median([r["in_thread_s"] for r in gen])),
+                                   "max": max(r["in_thread_s"] for r in gen)},
+          "generate_overhead_s": {"p50": float(np.median(over)), "max": over[-1]},
+          "generate_overhead_over_thread_s": {"p50": float(np.median(over_thread)),
+                                              "max": over_thread[-1]},
+          "final_stages": [b["final_stage"] for b in bodies],
+          "batch_final_stages": [r["final_stage"] for r in batch_body["results"]],
+          "stream_stages": [d["final_stage"] for d in streamed],
+          "scheduled": {"concurrent_s": concurrent_s,
+                        "final_stages": [cb["final_stage"] for _, cb, _ in together],
+                        "completed": completed},
+          "evaluate": {"seconds": eval_s, "points": [
+              {k: p[k] for k in ("lambda", "avg_latency_s", "avg_quality")} for p in sweep]},
+          "serve_script": child_row, "launches": launches,
+          "phase_s": time.perf_counter() - t_phase,
+          "card": f"{card['name']}, {card['power_limit']}"})
+    return launches
+
+
 def _error_metrics() -> list:
     return [ln for ln in global_metrics().export_metrics("prometheus").splitlines()
             if "errors_total" in ln and not ln.startswith("#") and float(ln.split()[-1]) > 0]
@@ -3319,6 +3818,7 @@ def main() -> int:
     paths["routing"], engine_rows = timed("routing", phase_routing, dev, tier0, int4_engines)
     paths["ensemble"] = timed("ensemble", phase_ensemble, dev, tier0, int4_engines, engine_rows)
     paths["graphs"] = timed("graphs", phase_graphs, dev, tier0, int4_engines, tier0_w8a8)
+    paths["http"] = timed("http", phase_http, dev, tier0, int4_engines, tier0_w8a8)
     timed("step", phase_step, [*int4_engines, tier0_w8a8])
     # the INT4 tiers once more with f32 activations, on the same weights
     timed("step", phase_step, [_twin(e, torch.float32) for e in int4_engines])

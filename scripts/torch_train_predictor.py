@@ -11,9 +11,9 @@ mlp`` writes the ``.npz`` both packages read; ``--predictor ensemble``
 writes the port's own ``.npz`` layout (the JAX script pickles sklearn
 members into a ``.pkl``, which needs sklearn to read). Training runs on
 ``--device`` (default ``cuda``; the ensemble's MLP member trains there, its
-trees on the host). The card's machine has no PyYAML: there, pass
-``--config-dir ''`` to take the config classes' defaults, which equal
-``configs/training.yaml``'s predictor section.
+trees on the host). ``configs/training.yaml`` is read with the port's own
+YAML reader (the card's machine has no PyYAML); ``--config-dir ''`` takes
+the config classes' defaults, which equal its predictor section.
 """
 
 from __future__ import annotations

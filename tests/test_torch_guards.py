@@ -1,7 +1,7 @@
 """Import and device guards of the PyTorch port: it, chip_smoke.py and
 the scripts/torch_*.py twins import neither jax nor adaptive_sd_tpu, nor a
 package the card's machine lacks (safetensors, optax, sklearn,
-transformers, yaml; and chip_smoke.py neither aiohttp nor pydantic), its
+transformers, yaml, aiohttp, pydantic), its
 entry points never fall back to the CPU on their own, and a tensor that is
 not on the CPU never reaches a kernel's plain version."""
 
@@ -30,15 +30,18 @@ for name in names:
 import chip_smoke
 for script in ("torch_real_smoke", "torch_train_predictor", "torch_int4_agreement_probe",
                "torch_trained_cascade_eval", "torch_load_bench", "torch_sched_bench",
-               "torch_gloo_cuda_probe"):
+               "torch_gloo_cuda_probe", "torch_serve", "torch_evaluate"):
     spec = importlib.util.spec_from_file_location(script, f"scripts/{script}.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
-absent = ("jax", "adaptive_sd_tpu", "safetensors", "optax", "sklearn", "transformers", "yaml")
+absent = ("jax", "adaptive_sd_tpu", "safetensors", "optax", "sklearn", "transformers", "yaml",
+          "aiohttp", "pydantic")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in absent)
 missing = sorted({"adaptive_sd_tpu_torch.engine.scheduler", "adaptive_sd_tpu_torch.cascade.scheduled",
                   "adaptive_sd_tpu_torch.models.loader", "adaptive_sd_tpu_torch.models.tiny_train",
                   "adaptive_sd_tpu_torch.engine.native_bridge", "adaptive_sd_tpu_torch.minimal",
                   "adaptive_sd_tpu_torch.config.base", "adaptive_sd_tpu_torch.config.schemas",
+                  "adaptive_sd_tpu_torch.config.yaml_lite", "adaptive_sd_tpu_torch.serve.server",
+                  "adaptive_sd_tpu_torch.serve.schemas",
                   "adaptive_sd_tpu_torch.core.interfaces",
                   "adaptive_sd_tpu_torch.utils.logging_utils",
                   "adaptive_sd_tpu_torch.utils.profiler",
@@ -73,13 +76,14 @@ def test_port_and_chip_smoke_import_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules, bad = out.stdout.split(maxsplit=1)
-    assert int(n_modules) >= 69
+    assert int(n_modules) >= 70
     assert bad.strip() == "[]"
 
 
 def test_chip_smoke_and_package_root_import_no_http_stack():
-    """The HTTP layer alone needs aiohttp and pydantic; neither the package
-    root nor chip_smoke.py pulls it in."""
+    """The port's HTTP layer is the standard library's: neither the package
+    root nor chip_smoke.py (which serves over HTTP) pulls in aiohttp or
+    pydantic."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", _IMPORT_SMOKE], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
@@ -223,6 +227,31 @@ def test_measuring_scripts_raise_without_cuda(tmp_path, script):
                           str(tmp_path / "r.json")], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0 and "CUDA" in out.stderr
+    assert list(tmp_path.iterdir()) == []
+
+
+def test_serving_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    """``python -m adaptive_sd_tpu_torch.serve``, ``scripts/torch_serve.py``
+    and ``scripts/torch_evaluate.py`` run on the card unless ``--device cpu``
+    is given: without one they raise before building or fitting anything."""
+    import importlib.util
+
+    from adaptive_sd_tpu_torch.serve.__main__ import main
+
+    def script(name):
+        spec = importlib.util.spec_from_file_location(name, REPO / "scripts" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    serve, evaluate = script("torch_serve"), script("torch_evaluate")
+    _no_cuda(monkeypatch)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--mock"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.build(serve.parse_args(["--mock"]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate.main(["--out", str(tmp_path / "r.json")])
     assert list(tmp_path.iterdir()) == []
 
 

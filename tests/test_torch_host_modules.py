@@ -12,6 +12,7 @@ import logging
 import sys
 import time
 from dataclasses import dataclass, field
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -21,6 +22,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
 PACKAGES = ["adaptive_sd_tpu", "adaptive_sd_tpu_torch"]
+REPO = Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture(params=PACKAGES, ids=["jax", "torch"])
@@ -230,18 +232,25 @@ def test_config_defaults_equal_across_packages():
 
 
 def test_config_without_pyyaml(tmp_path, monkeypatch):
-    """The card's machine has no PyYAML: dicts, JSON and the environment work
-    without it; only reading or writing a YAML file needs it."""
+    """The card's machine has no PyYAML: dicts, JSON, the environment and
+    YAML files (through the port's own reader and writer) all work without
+    it, and the repo's serving config reads as the JAX package reads it."""
+    from adaptive_sd_tpu.config import ConfigManager as JManager
+    from adaptive_sd_tpu.config import ServingConfig as JServing
     from adaptive_sd_tpu_torch import config as tc
 
+    jserving = JManager(str(REPO / "configs")).load("serving", JServing).to_dict()
     monkeypatch.setitem(sys.modules, "yaml", None)  # import yaml now raises
     monkeypatch.setenv("ADAPTIVE_SD_SERVING__SERVER__PORT", "4321")
     c = tc.ConfigManager(str(tmp_path)).load("serving", tc.ServingConfig)
     assert c.server.port == 4321
     s = tc.ServingConfig.from_dict(json.loads(json.dumps(c.to_dict())))
     assert s.to_dict() == c.to_dict()
-    with pytest.raises(ImportError):
-        s.save_yaml(tmp_path / "x.yaml")
+    s.save_yaml(tmp_path / "x.yaml")
+    assert tc.ServingConfig.from_yaml(tmp_path / "x.yaml").to_dict() == s.to_dict()
+    monkeypatch.delenv("ADAPTIVE_SD_SERVING__SERVER__PORT")
+    served = tc.ConfigManager(str(REPO / "configs")).load("serving", tc.ServingConfig)
+    assert served.to_dict() == jserving
 
 
 # --------------------------------------------------------------------------- utils

@@ -1,11 +1,17 @@
-"""HTTP API of the port (aiohttp test client): the routes of the JAX
-package's ``tests/test_serve.py`` against the port's ``build_app`` over a
-mock-stage pipeline, plus the /metrics route and oversized and malformed
-bodies. No pytest-asyncio here, so each test drives its own event loop via
-asyncio.run."""
+"""HTTP API of the port (its standard-library server, driven over a real
+socket by a small ``http.client`` client): the routes of the JAX package's
+``tests/test_serve.py`` against the port's ``build_app`` over a mock-stage
+pipeline, plus the /metrics route and oversized and malformed bodies; then
+one script of requests sent to the JAX package's aiohttp app (through
+aiohttp's test client) and to the port's server, which must answer alike,
+down to 404, 405, a chunked body, keep-alive and ``Expect: 100-continue``."""
 
 import asyncio
+import http.client
+import json
 import re
+import socket
+from urllib.parse import urlsplit
 
 import numpy as np
 import pytest
@@ -19,9 +25,67 @@ from adaptive_sd_tpu_torch.cascade import (
     StageManager,
 )
 from adaptive_sd_tpu_torch.predict import MLPQualityPredictor
-from adaptive_sd_tpu_torch.serve import build_app
+from adaptive_sd_tpu_torch.serve import BackgroundServer, build_app
 
 torch.set_num_threads(2)
+
+
+class Reply:
+    def __init__(self, status, headers, body):
+        self.status, self.headers, self.body = status, headers, body
+
+    def json(self):
+        return json.loads(self.body)
+
+    def text(self):
+        return self.body.decode()
+
+
+class Client:
+    """A keep-alive ``http.client`` connection to one server."""
+
+    def __init__(self, url):
+        u = urlsplit(url)
+        self.host, self.port = u.hostname, u.port
+        self.conn = http.client.HTTPConnection(self.host, self.port, timeout=120)
+
+    def request(self, method, path, json_body=None, data=None, headers=None, chunked=False):
+        headers = dict(headers or {})
+        body = data
+        if json_body is not None:
+            body = json.dumps(json_body).encode()
+            headers.setdefault("Content-Type", "application/json")
+        if chunked:
+            body = iter([body[i:i + 7] for i in range(0, len(body), 7)])
+        self.conn.request(method, path, body=body, headers=headers, encode_chunked=chunked)
+        r = self.conn.getresponse()
+        return Reply(r.status, r.headers, r.read())
+
+    def get(self, path, **kw):
+        return self.request("GET", path, **kw)
+
+    def post(self, path, json_body=None, **kw):
+        return self.request("POST", path, json_body=json_body, **kw)
+
+    def expect_continue(self, path, json_body):
+        """POST with ``Expect: 100-continue`` on a fresh socket: the body goes
+        out only after the server's interim 100 response has arrived."""
+        body = json.dumps(json_body).encode()
+        with socket.create_connection((self.host, self.port), timeout=30) as sock:
+            sock.sendall((f"POST {path} HTTP/1.1\r\nHost: {self.host}\r\n"
+                          f"Content-Type: application/json\r\nContent-Length: {len(body)}\r\n"
+                          "Expect: 100-continue\r\n\r\n").encode())
+            interim = b""
+            while not interim.endswith(b"\r\n\r\n"):
+                interim += sock.recv(1)
+            assert interim == b"HTTP/1.1 100 Continue\r\n\r\n", interim
+            sock.sendall(body)
+            r = http.client.HTTPResponse(sock, method="POST")
+            r.begin()
+            return Reply(r.status, r.headers, r.read())
+
+    def close(self):
+        self.conn.close()
 
 
 @pytest.fixture(scope="module")
@@ -38,34 +102,30 @@ def pipeline():
     pipe.shutdown()
 
 
-def with_client(pipeline, coro_fn, **app_kwargs):
-    async def runner():
-        app = build_app(pipeline, **app_kwargs)
-        client = TestClient(TestServer(app))
-        await client.start_server()
+def with_client(pipeline, fn, **app_kwargs):
+    with BackgroundServer(build_app(pipeline, **app_kwargs)) as server:
+        client = Client(server.url)
         try:
-            return await coro_fn(client)
+            return fn(client)
         finally:
-            await client.close()
-
-    return asyncio.run(runner())
+            client.close()
 
 
 def test_health(pipeline):
-    async def t(client):
-        r = await client.get("/health")
+    def t(client):
+        r = client.get("/health")
         assert r.status == 200
-        body = await r.json()
+        body = r.json()
         assert body["status"] == "healthy" and body["stages"] == ["7b", "72b"]
 
     with_client(pipeline, t)
 
 
 def test_generate(pipeline):
-    async def t(client):
-        r = await client.post("/generate", json={"prompt": "What is 2+2?"})
+    def t(client):
+        r = client.post("/generate", {"prompt": "What is 2+2?"})
         assert r.status == 200
-        body = await r.json()
+        body = r.json()
         assert body["text"] and body["final_stage"] in (0, 1)
         assert body["latency_s"] > 0
 
@@ -73,99 +133,93 @@ def test_generate(pipeline):
 
 
 def test_generate_validation_422(pipeline):
-    async def t(client):
-        r = await client.post("/generate", json={"prompt": "   "})
+    def t(client):
+        r = client.post("/generate", {"prompt": "   "})
         assert r.status == 422
-        r = await client.post("/generate", json={"prompt": "x", "max_tokens": -1})
+        r = client.post("/generate", {"prompt": "x", "max_tokens": -1})
         assert r.status == 422
 
     with_client(pipeline, t)
 
 
 def test_batch_generate(pipeline):
-    async def t(client):
-        r = await client.post(
-            "/batch_generate", json={"prompts": ["a question", "another question"]}
-        )
+    def t(client):
+        r = client.post("/batch_generate", {"prompts": ["a question", "another question"]})
         assert r.status == 200
-        body = await r.json()
+        body = r.json()
         assert len(body["results"]) == 2
 
     with_client(pipeline, t)
 
 
 def test_stats_and_reset(pipeline):
-    async def t(client):
-        await client.post("/generate", json={"prompt": "for stats"})
-        r = await client.get("/stats")
-        body = await r.json()
+    def t(client):
+        client.post("/generate", {"prompt": "for stats"})
+        r = client.get("/stats")
+        body = r.json()
         assert body["total_requests"] >= 1
         assert len(body["stage_distribution"]) == 2
-        r = await client.post("/reset_stats")
-        assert (await r.json())["reset"]
-        body = await (await client.get("/stats")).json()
+        r = client.post("/reset_stats")
+        assert r.json()["reset"]
+        body = client.get("/stats").json()
         assert body["total_requests"] == 0
 
     with_client(pipeline, t)
 
 
 def test_update_lambda_and_bounds(pipeline):
-    async def t(client):
-        r = await client.post("/update_lambda", json={"lambda_value": 2.5})
+    def t(client):
+        r = client.post("/update_lambda", {"lambda_value": 2.5})
         assert r.status == 200 and pipeline.lam == 2.5
-        r = await client.post("/update_lambda", json={"lambda_value": 0.001})
+        r = client.post("/update_lambda", {"lambda_value": 0.001})
         assert r.status == 422
 
     with_client(pipeline, t)
 
 
 def test_models(pipeline):
-    async def t(client):
-        r = await client.get("/models")
-        body = await r.json()
+    def t(client):
+        body = client.get("/models").json()
         assert len(body["models"]) == 2 and body["costs"][1] > body["costs"][0]
 
     with_client(pipeline, t)
 
 
 def test_cache_stats(pipeline):
-    async def t(client):
-        r = await client.get("/cache_stats")
-        body = await r.json()
+    def t(client):
+        body = client.get("/cache_stats").json()
         assert "hit_rate" in body and "utilization" in body
 
     with_client(pipeline, t)
 
 
 def test_api_key_auth(pipeline):
-    async def t(client):
-        r = await client.get("/health")
+    def t(client):
+        r = client.get("/health")
         assert r.status == 401
-        r = await client.get("/health", headers={"x-api-key": "secret"})
+        r = client.get("/health", headers={"x-api-key": "secret"})
         assert r.status == 200
 
     with_client(pipeline, t, api_key="secret")
 
 
 def test_rate_limit(pipeline):
-    async def t(client):
+    def t(client):
         statuses = []
         for _ in range(30):
-            r = await client.get("/health")
-            statuses.append(r.status)
+            statuses.append(client.get("/health").status)
         assert 429 in statuses  # tiny bucket must throttle a burst
 
     with_client(pipeline, t, rate_limit_rps=1.0)
 
 
 def test_generate_stream_sse(pipeline):
-    async def t(client):
-        async with client.post(
-            "/generate_stream", json={"prompt": "stream me a story please"}
-        ) as r:
-            assert r.status == 200
-            assert r.headers["Content-Type"].startswith("text/event-stream")
-            body = (await r.read()).decode()
+    def t(client):
+        r = client.post("/generate_stream", {"prompt": "stream me a story please"})
+        assert r.status == 200
+        assert r.headers["Content-Type"].startswith("text/event-stream")
+        assert r.headers["Transfer-Encoding"] == "chunked"
+        body = r.text()
         assert "data: " in body
         assert "event: done" in body
         assert '"final_stage"' in body
@@ -174,14 +228,14 @@ def test_generate_stream_sse(pipeline):
 
 
 def test_metrics_and_bad_bodies(pipeline):
-    async def t(client):
-        await client.post("/generate", json={"prompt": "count me"})
-        r = await client.get("/metrics")
-        assert r.status == 200 and "requests_total" in await r.text()
-        r = await client.post("/generate", data=b"not json",
-                              headers={"Content-Type": "application/json"})
+    def t(client):
+        client.post("/generate", {"prompt": "count me"})
+        r = client.get("/metrics")
+        assert r.status == 200 and "requests_total" in r.text()
+        r = client.post("/generate", data=b"not json",
+                        headers={"Content-Type": "application/json"})
         assert r.status == 400
-        r = await client.post("/generate", json={"prompt": "x" * (5 << 20)})
+        r = client.post("/generate", {"prompt": "x" * (5 << 20)})
         assert r.status == 413
 
     with_client(pipeline, t)
@@ -189,14 +243,57 @@ def test_metrics_and_bad_bodies(pipeline):
 
 def test_generate_matches_the_pipeline(pipeline):
     """The route returns what process_request returns for the same request."""
-    async def t(client):
-        r = await client.post("/generate", json={"prompt": "Explain gravity briefly.",
-                                                 "lambda_override": 50.0})
-        return await r.json()
+    def t(client):
+        return client.post("/generate", {"prompt": "Explain gravity briefly.",
+                                         "lambda_override": 50.0}).json()
 
     body = with_client(pipeline, t)
     assert body["final_stage"] == 0 and body["final_stage_name"] == "7b"
     assert body["text"].startswith("[7b]") and body["cost"] == 1.0
+
+
+def test_concurrent_clients_each_get_their_own_answer():
+    """Sixteen clients on their own kept-alive connections, a short switch
+    interval: every request is answered once, with its own request id, and
+    the pipeline counts each of them."""
+    import sys
+    import threading
+
+    pred = MLPQualityPredictor(seed=0)
+    pipe = AdaptiveCascadePipeline(StageManager([MockStage("7b", 1.0, capacity=0.5),
+                                                 MockStage("72b", 10.0, capacity=0.97)]),
+                                   pred, PipelineConfig(enable_caching=False))
+    answers, errors = {}, []
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        with BackgroundServer(build_app(pipe)) as server:
+            def client(k):
+                c = Client(server.url)
+                try:
+                    for j in range(4):
+                        rid = f"c{k}-{j}"
+                        r = c.post("/generate", {"prompt": f"question {k} {j}", "request_id": rid})
+                        answers[rid] = (r.status, r.json()["request_id"])
+                except Exception as exc:  # noqa: BLE001 - reported below
+                    errors.append(exc)
+                finally:
+                    c.close()
+
+            threads = [threading.Thread(target=client, args=(k,)) for k in range(16)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(60)
+            assert not any(t.is_alive() for t in threads) and not errors, errors
+            stats_client = Client(server.url)
+            total = stats_client.get("/stats").json()["total_requests"]
+            stats_client.close()
+    finally:
+        sys.setswitchinterval(interval)
+        pipe.shutdown()
+    assert len(answers) == 64 and all(v == (200, rid) for rid, v in answers.items())
+    assert total == 64
 
 
 @pytest.mark.parametrize("mode", ["--mock", "--synthetic"])
@@ -270,19 +367,18 @@ def test_scheduled_entry_point_serves_and_fills_scheduler_stats():
     assert [s.preemption_mode for s in pipe.schedulers] == ["swap"] * 3
     assert [s.scan_steps for s in pipe.schedulers] == [4] * 3
 
-    async def t(client):
-        r = await client.post("/generate", json={"prompt": "Explain gravity.", "max_tokens": 8})
+    def t(client):
+        r = client.post("/generate", {"prompt": "Explain gravity.", "max_tokens": 8})
         assert r.status == 200
-        body = await r.json()
+        body = r.json()
         assert body["text"] and body["final_stage"] in (0, 1, 2)
-        r = await client.post("/batch_generate", json={"prompts": ["one", "two", "three"],
-                                                       "max_tokens": 6})
-        assert r.status == 200 and len((await r.json())["results"]) == 3
-        async with client.post("/generate_stream", json={"prompt": "stream me", "max_tokens": 6}) as r:
-            assert r.status == 200
-            sse = (await r.read()).decode()
+        r = client.post("/batch_generate", {"prompts": ["one", "two", "three"], "max_tokens": 6})
+        assert r.status == 200 and len(r.json()["results"]) == 3
+        r = client.post("/generate_stream", {"prompt": "stream me", "max_tokens": 6})
+        assert r.status == 200
+        sse = r.text()
         assert "data: " in sse and "event: done" in sse
-        stats = await (await client.get("/stats")).json()
+        stats = client.get("/stats").json()
         assert stats["total_requests"] == 4 and len(stats["schedulers"]) == 3
         first = stats["schedulers"][0]
         assert first["lanes"] == 2 and first["preemption_mode"] == "swap"
@@ -307,6 +403,21 @@ def test_scheduled_entry_point_serves_and_fills_scheduler_stats():
 _CLOCK_KEYS = {"latency_s", "batch_latency_s", "uptime_s", "ema_latency_s", "timestamp",
                "generation_time_s"}
 _HARD = "Rigorously prove the optimal bound for this algorithm, step by step, with a formal proof."
+
+
+class _Chunked(dict):
+    """A JSON body sent with chunked transfer encoding."""
+
+
+class _Expect(dict):
+    """A JSON body sent only after the server's ``100 Continue``."""
+
+
+class _KeepAlive(list):
+    """JSON bodies sent one after another on one connection; the step's body
+    is the list of their answers."""
+
+
 # (method, path, payload, expected status)
 _SCRIPT = [
     ("GET", "/health", None, 200),
@@ -345,13 +456,24 @@ _SCRIPT = [
     ("GET", "/stats", None, 200),
     ("POST", "/reset_stats", None, 200),
     ("GET", "/stats", None, 200),
+    # the transport: unknown path, wrong methods, a chunked body, two requests on
+    # one kept-alive connection, and bodies sent after "Expect: 100-continue"
+    ("GET", "/no_such_route", None, 404),
+    ("POST", "/health", None, 405),
+    ("GET", "/generate", None, 405),
+    ("POST", "/update_lambda", _Chunked({"lambda_value": 1.5}), 200),
+    ("POST", "/generate", _Chunked({"prompt": "a chunked request body", "request_id": "r9"}),
+     200),
+    ("POST", "/generate", _KeepAlive([{"prompt": "first on one connection", "request_id": "r10"},
+                                      {"prompt": _HARD, "lambda_override": 0.05,
+                                       "request_id": "r11"}]), 200),
+    ("POST", "/generate", _Expect({"prompt": "why " * 400 + "?", "request_id": "r12"}), 200),
+    ("POST", "/update_lambda", _Expect({"lambda_value": 1.0}), 200),
 ]
 
 
 def _sse(text):
     """An SSE body as (data chunks, the final event's dict)."""
-    import json
-
     chunks, done = [], None
     for block in text.strip().split("\n\n"):
         lines = block.split("\n")
@@ -362,25 +484,72 @@ def _sse(text):
     return {"chunks": chunks, "done": done}
 
 
-async def _run_script(client):
+def _body(status, headers, raw):
+    ctype = headers.get("Content-Type", "")
+    if ctype.startswith("text/event-stream"):
+        return _sse(raw.decode())
+    if ctype.startswith("application/json"):
+        return json.loads(raw)
+    # aiohttp's 413 text ends in the bytes it had received when the limit
+    # tripped, which follows the socket's chunking, not the app
+    return re.sub(r"actual body size \d+", "actual body size N", raw.decode()), headers.get(
+        "Allow")
+
+
+async def _run_script_aiohttp(client):
+    """The script through aiohttp's test client (the JAX package's app)."""
+    async def pieces(data):
+        for i in range(0, len(data), 7):
+            yield data[i:i + 7]
+
     out = []
     for method, path, payload, _ in _SCRIPT:
-        if method == "GET":
-            r = await client.get(path)
-        elif isinstance(payload, bytes):
-            r = await client.post(path, data=payload, headers={"Content-Type": "application/json"})
-        else:
-            r = await client.post(path, json=payload)
-        ctype = r.headers.get("Content-Type", "")
-        if ctype.startswith("text/event-stream"):
-            body = _sse((await r.read()).decode())
-        elif ctype.startswith("application/json"):
-            body = await r.json()
-        else:
-            # aiohttp's 413 text ends in the bytes it had received when the
-            # limit tripped, which follows the socket's chunking, not the app
-            body = re.sub(r"actual body size \d+", "actual body size N", await r.text())
-        out.append((r.status, body))
+        items = payload if isinstance(payload, _KeepAlive) else [payload]
+        answers = []
+        for item in items:
+            if method == "GET":
+                r = await client.get(path)
+            elif isinstance(item, bytes):
+                r = await client.post(path, data=item,
+                                      headers={"Content-Type": "application/json"})
+            elif isinstance(item, _Chunked):
+                r = await client.post(path, data=pieces(json.dumps(item).encode()),
+                                      headers={"Content-Type": "application/json"})
+            else:
+                r = await client.post(path, json=item, expect100=isinstance(item, _Expect))
+            answers.append((r.status, _body(r.status, r.headers, await r.read())))
+        out.append(answers[0] if len(answers) == 1 else (
+            answers[0][0], [b for _, b in answers]))
+    return out
+
+
+def _run_script_http(url):
+    """The script through ``Client`` (the port's server)."""
+    client, out = Client(url), []
+    try:
+        for method, path, payload, _ in _SCRIPT:
+            if isinstance(payload, _KeepAlive):
+                answers = []
+                for item in payload:
+                    r = client.post(path, item)
+                    sock = client.conn.sock
+                    answers.append((r.status, _body(r.status, r.headers, r.body)))
+                    assert sock is not None and (len(answers) == 1 or sock is first_sock)
+                    first_sock = sock
+                out.append((answers[0][0], [b for _, b in answers]))
+                continue
+            if method == "GET":
+                r = client.get(path)
+            elif isinstance(payload, bytes):
+                r = client.post(path, data=payload, headers={"Content-Type": "application/json"})
+            elif isinstance(payload, _Expect):
+                r = client.expect_continue(path, dict(payload))
+            else:
+                r = client.post(path, None if payload is None else dict(payload),
+                                chunked=isinstance(payload, _Chunked))
+            out.append((r.status, _body(r.status, r.headers, r.body)))
+    finally:
+        client.close()
     return out
 
 
@@ -422,19 +591,20 @@ def both_apps():
                       MockStage("72b", cost_per_token=10.0, capacity=0.97)]),
         tpred, PipelineConfig(lam=1.0))
 
-    def drive(build, pipe):
-        async def runner():
-            client = TestClient(TestServer(build(pipe)))
-            await client.start_server()
-            try:
-                return await _run_script(client)
-            finally:
-                await client.close()
+    async def drive_jax():
+        client = TestClient(TestServer(jbuild_app(jpipe)))
+        await client.start_server()
+        try:
+            return await _run_script_aiohttp(client)
+        finally:
+            await client.close()
 
-        return asyncio.run(runner())
+    def drive_port():
+        with BackgroundServer(build_app(tpipe)) as server:
+            return _run_script_http(server.url)
 
     try:
-        yield drive(jbuild_app, jpipe), drive(build_app, tpipe)
+        yield asyncio.run(drive_jax()), drive_port()
     finally:
         jpipe.shutdown()
         tpipe.shutdown()
@@ -460,6 +630,10 @@ def test_script_reaches_both_stages_the_cache_and_both_stream_tiers(both_apps):
     assert [r["final_stage"] for r in bodies[14]["results"]] == [0, 1, 1]
     assert [bodies[i]["done"]["final_stage"] for i in (15, 16, 17, 21)] == [0, 1, 0, 0]
     assert bodies[28]["total_requests"] > 0 and bodies[30]["total_requests"] == 0
+    assert bodies[32] == ("405: Method Not Allowed", "GET,HEAD") and bodies[33][1] == "POST"
+    assert bodies[34] == {"lambda": 1.5} and bodies[35]["request_id"] == "r9"
+    assert [b["final_stage"] for b in bodies[36]] == [0, 1]
+    assert bodies[37]["request_id"] == "r12" and bodies[38] == {"lambda": 1.0}
 
 
 def test_mock_stage_matches_jax():
