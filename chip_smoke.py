@@ -114,7 +114,8 @@ Phases, one JSON line each; any failure exits non-zero:
 7. step: one decode step of each tier, its launches per kernel, its time and
    the device's busy time by kernel (torch.profiler), and the seconds of a
    512-token prefill and its device time by kernel; the INT4 tiers also with
-   f32 activations.
+   f32 activations, cut to their first STEP_F32_LAYERS layers (the line names
+   the cut).
 8. rehearsal: scripts/torch_real_smoke.py's trained rehearsal on the card:
    the three rehearsal tiers (head dims 48, 40, 64) trained with ``train_lm``,
    written by ``save_checkpoint``, loaded by ``load_params`` into the
@@ -124,8 +125,19 @@ Phases, one JSON line each; any failure exits non-zero:
    first tier trained REHEARSAL_CHECK_STEPS steps on the card from the CPU's
    initial weights gives the CPU's loss curve within TRAIN_TOL; one rehearsal
    request runs inside ``TorchProfilerTrace`` and must leave a non-empty
-   Chrome trace.
-9. tp: tensor parallelism, two ranks sharing the card, joined by gloo
+   Chrome trace. The trained tiers are kept for the next phase.
+9. twins: the measuring scripts' twins through their ``run``, cut to the
+   TWINS_* sizes (each cut beside the script's default in the line):
+   scripts/torch_cascade_demo.py at its card sizes (7B -> 32B widths, 2
+   layers) with the target tier over its prefix cache, which must accept its
+   own greedy output in full, the drafts' escalation flags equal to the
+   host's stopping rule on the returned p_hat;
+   scripts/torch_quant_format_bench.py at the 72B width (INT8, W8A8, grouped
+   INT4), every per-layer slope positive;
+   scripts/torch_actquant_eval.py --quick on the rehearsal's trained tiers
+   (W8A8 at their widths); scripts/torch_profile_costs.py --synthetic at the
+   7B and 72B widths (finite positive ratios, no YAML written).
+10. tp: tensor parallelism, two ranks sharing the card, joined by gloo
    (NCCL refuses two ranks on one GPU; the forward's all_reduce and
    all_gather on CUDA tensors go through shared host memory,
    parallel/host_memory.py), started by ``parallel.spawn_ranks``; each rank
@@ -149,16 +161,18 @@ Phases, one JSON line each; any failure exits non-zero:
    of its steps.
    The ring overlap does not run here (gloo's send/recv refuse CUDA
    tensors); the CPU tests cover it.
-10. path_shapes: the matmul wrappers collected every distinct (M, K, N, group
-   size, type) that the paths from checkpoint to rehearsal launched them at,
+11. path_shapes: the matmul wrappers collected every distinct (M, K, N, group
+   size, type) that the paths from checkpoint on launched them at (the twins'
+   72B and trained-tier widths among them),
    and the paged window wrapper every forward's call (batch, W, offsets,
    window lengths, G, head dim, type; a line gives the histograms of W and
    of the cached pages); each kernel is held against its plain version at
    every one of them (the tp ranks' shard shapes included).
 
 The kernels' launch counters are zeroed just before each of the paths 4, 5,
-6, 8 and 9 (the scheduler, checkpoint, scheduled_pipeline, routing, graphs
-and http paths too; a graph's replay adds the launches its capture recorded;
+6, 8, 9 and 10 (the scheduler, checkpoint, scheduled_pipeline, routing,
+graphs and http paths too, and each of the twins' runs, whose counts are
+summed; a graph's replay adds the launches its capture recorded;
 the tp path's counts are the ranks' sum; the http path counts the requests
 sent over HTTP, not the in-process runs they are held against)
 and read just after;
@@ -322,6 +336,15 @@ ENSEMBLE_LAMBDAS = (1.0, 0.3, 0.1, 0.03)
 LOAD_N = 12
 LOAD_RATE = 4.0
 LOAD_N_TRAIN = 16
+# the twins phase: the measuring scripts' twins through their run(), cut
+# (each cut beside the script's default in the phase's line)
+# the step phase's f32 pass over the INT4 tiers: their first layers only
+STEP_F32_LAYERS = 8
+TWINS_QF = {"tier_bases": ("qwen2.5-72b",), "depths": (2, 4), "reps": 2, "max_new": 16}
+TWINS_PROFILE_TIERS = ("qwen2.5-7b", "qwen2.5-72b")
+# outputs (16, 32): the fit needs 6 measurements a tier, and the grid's
+# corners with one output length are 4
+TWINS_PROFILE_GRID = {"input_lens": (64, 128), "output_lens": (16, 32), "batch_sizes": (1, 4)}
 # the tp phase: two ranks on the one card, joined by gloo (NCCL refuses two
 # ranks on one GPU; CUDA tensors go through shared host memory). (a)
 # Qwen2.5-7B at full width and depth, INT8 fused, f32 activations, prefix
@@ -1423,11 +1446,15 @@ def phase_per_channel(dev) -> dict:
     return launches
 
 
-def _twin(engine, dtype, n_pages: int = 64):
+def _twin(engine, dtype, n_pages: int = 64, layers=None):
     """The engine's weights with activations of another type (the quantized
     projections are shared, embeddings and norms cast), with a KV pool of
-    its own."""
-    twin = TierEngine(engine.spec, _cast_activations(engine.params, dtype),
+    its own; ``layers`` keeps only the first that many layers."""
+    params, spec = engine.params, engine.spec
+    if layers is not None:
+        params = dict(params, layers=params["layers"][:layers])
+        spec = scaled_spec(spec, layers=layers, name=spec.name)
+    twin = TierEngine(spec, _cast_activations(params, dtype),
                       page_size=engine.page_size, n_pages=n_pages, device=engine.device,
                       enable_prefix_cache=engine.prefix_cache is not None)
     twin.warmup()
@@ -2954,20 +2981,22 @@ def _error_metrics() -> list:
             if "errors_total" in ln and not ln.startswith("#") and float(ln.split()[-1]) > 0]
 
 
-def phase_step(engines) -> None:
+def phase_step(engines, full_layers=None) -> None:
     """One decode step of each tier at the serve phase's batch and final
     context lengths: its kernel launches, its time on the card (CUDA events),
     and the device time by kernel from torch.profiler; the device idles for
     the rest of the step (host work, launch gaps): the idle share compares
     the profiled step's busy time with its own span (CUDA events). Then the seconds one
     512-token prompt takes to prefill, and that prefill's device time by
-    kernel (the paged window kernel's share where the prefix cache is on)."""
+    kernel (the paged window kernel's share where the prefix cache is on).
+    ``full_layers``: the tiers' published depths where ``engines`` are cut
+    (each line then names the cut)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from adaptive_sd_tpu_torch.models.qwen import decode_step
 
-    for e in engines:
+    for i, e in enumerate(engines):
         B, dev = len(PROMPT_LENS), e.device
         pos = [n + MAX_NEW for n in PROMPT_LENS]
         rids = [f"smoke_step_{b}" for b in range(B)]
@@ -3035,8 +3064,9 @@ def phase_step(engines) -> None:
         pre_kernels, pre_busy, pre_by_kernel = device_ms(prof_pre)
         weights = f"int{e.params['layers'][0]['qkv_proj'].bits}" + (
             " act_quant" if e.act_quant else "")
-        emit({"phase": "step", "tier": e.spec.name, "weights": weights,
-              "activations": str(e.params["embed"].dtype), "batch": B, "positions": pos,
+        cut = {"cut": {"layers": [e.spec.n_layers, full_layers[i]]}} if full_layers else {}
+        emit({"phase": "step", "tier": e.spec.name, "weights": weights, "layers": e.spec.n_layers,
+              **cut, "activations": str(e.params["embed"].dtype), "batch": B, "positions": pos,
               "launches": launches, "step_ms": step_ms, "device_busy_ms": busy,
               "profiled_step_ms": profiled_ms,
               "kernel_ms": by_kernel, "prefill_512_tokens_s": prefill_s,
@@ -3319,10 +3349,11 @@ def phase_checkpoint(dev, base_spec=None) -> dict:
     return launches
 
 
-def phase_rehearsal(dev) -> dict:
+def phase_rehearsal(dev, ckpt_dir: str) -> dict:
     """scripts/torch_real_smoke.py's trained rehearsal on the card, after the
     card-against-CPU check of the first tier's loss curve; one request is
-    traced. Returns the launch counts of the rehearsal's run."""
+    traced. The trained tiers stay in ``ckpt_dir`` (``--checkpoint-dir``)
+    for the twins phase. Returns the launch counts of the rehearsal's run."""
     smoke = _load_script()
     items = [it for name in ("factual-qa", "gsm-style") for it in load_frozen(name)]
     tokz = tiny_train.CharTokenizer()
@@ -3361,7 +3392,7 @@ def phase_rehearsal(dev) -> dict:
 
     with tempfile.TemporaryDirectory(prefix="asd_rehearsal_") as tmp:
         args = smoke.parse_args(["--rehearse", "--device", str(dev), "--out",
-                                 f"{tmp}/torch_real_smoke.json"])
+                                 f"{tmp}/torch_real_smoke.json", "--checkpoint-dir", ckpt_dir])
         zero_counters()
         t0 = time.perf_counter()
         report = smoke.run(args, progress=lambda m: None, after=trace_one)
@@ -3386,6 +3417,110 @@ def phase_rehearsal(dev) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def _add_counts(total: dict, launches: dict) -> dict:
+    return {k: total.get(k, 0) + v for k, v in launches.items()}
+
+
+def phase_twins(dev, ckpt_dir: str) -> dict:
+    """Four of the measuring scripts' twins through their ``run``, each between
+    a zeroing and a reading of the launch counters: (a)
+    scripts/torch_cascade_demo.py at its card sizes (7B -> 32B widths, 2
+    layers, INT8) with the target tier over its prefix cache: it must accept
+    its own greedy output in full, and the drafts' escalation flags must equal
+    the host's stopping rule on the returned p_hat; (b)
+    scripts/torch_quant_format_bench.py at the 72B width, INT8 / W8A8 / INT4,
+    cut to TWINS_QF: every per-layer slope positive; (c)
+    scripts/torch_actquant_eval.py --quick on the rehearsal's trained tiers in
+    ``ckpt_dir``: W8A8 launched at their widths; (d)
+    scripts/torch_profile_costs.py --synthetic at TWINS_PROFILE_TIERS over
+    TWINS_PROFILE_GRID, no YAML written: finite positive ratios. Returns the
+    four runs' summed launches."""
+    from adaptive_sd_tpu_torch.utils import MeasurementConfig
+
+    quiet = {"progress": lambda m: None}
+    total = {}
+    row = {"phase": "twins"}
+    t_phase = time.perf_counter()
+
+    demo = _load_script("torch_cascade_demo")
+    record = {}
+    zero_counters()
+    res, secs = _call(demo.run, demo.parse_args(["--device", str(dev)]), record=record,
+                      target_prefix_cache=True, **quiet)
+    launches = read_counters()
+    total = _add_counts(total, launches)
+    costs = np.asarray(demo.COSTS, np.float64) / demo.COSTS[-1]
+    lam = demo.parse_args([]).lam
+    host = [bool(optimal_stopping_rule([float(p), demo.PRIORS[1]], costs, lam)[0] > 0)
+            for p in record["p_hat"]]
+    row["cascade_demo"] = {
+        "seconds": secs, "result": res, "escalate_device": record["escalate"].tolist(),
+        "escalate_host": host, "p_hat": record["p_hat"].tolist(),
+        "self_verified": record["self_verified"], "launches": launches}
+    if res["self_acceptance_frac"] != 1.0:
+        fail(f"twins cascade_demo: the 32B-width tier did not accept its own greedy output "
+             f"over its prefix cache: {record['self_verified']}")
+    if host != record["escalate"].tolist():
+        fail(f"twins cascade_demo: escalation flags {record['escalate'].tolist()} differ "
+             f"from the host's rule {host}")
+    _require_launches("twins cascade_demo", launches,
+                      ("int8_matmul", "paged_decode", "paged_window"))
+
+    qf = _load_script("torch_quant_format_bench")
+    zero_counters()
+    rep, secs = _call(qf.run, qf.parse_args(["--device", str(dev)]), **quiet, **TWINS_QF)
+    launches = read_counters()
+    total = _add_counts(total, launches)
+    row["quant_format"] = {"seconds": secs, "summary_per_layer_ms": rep["summary_per_layer_ms"],
+                           "rows": rep["rows"], "B": rep["B"], "max_new": rep["max_new"],
+                           "launches": launches}
+    slopes = [v for per in rep["summary_per_layer_ms"].values() for v in per.values()]
+    if len(slopes) != 3 or not all(v > 0 for v in slopes):
+        fail(f"twins quant_format: a per-layer slope is not positive: {rep['rows']}")
+    _require_launches("twins quant_format", launches,
+                      ("int8_matmul", "w8a8_matmul", "int4_matmul_grouped"))
+
+    aq = _load_script("torch_actquant_eval")
+    zero_counters()
+    rep, secs = _call(aq.run, aq.parse_args(["--ckpt-dir", ckpt_dir, "--device", str(dev),
+                                             "--quick", "--out", ""]), **quiet)
+    launches = read_counters()
+    total = _add_counts(total, launches)
+    row["actquant"] = {"seconds": secs, "n_rep": rep["n_rep"], "tiers": rep["tiers"],
+                       "launches": launches}
+    if len(rep["tiers"]) != len(_load_script().REHEARSAL_RECIPES):
+        fail(f"twins actquant: {len(rep['tiers'])} tiers under {ckpt_dir}")
+    _require_launches("twins actquant", launches, ("w8a8_matmul", "int8_matmul"))
+
+    pc = _load_script("torch_profile_costs")
+    zero_counters()
+    rep, secs = _call(pc.run, pc.parse_args(["--synthetic", "--device", str(dev), "--out", ""]),
+                      tiers=TWINS_PROFILE_TIERS,
+                      config=MeasurementConfig(repetitions=2, **TWINS_PROFILE_GRID), **quiet)
+    launches = read_counters()
+    total = _add_counts(total, launches)
+    row["profile_costs"] = {"seconds": secs, "cost_ratios": rep["cost_ratios"],
+                            "models": rep["models"], "launches": launches}
+    if not all(math.isfinite(r) and r > 0 for r in rep["cost_ratios"]):
+        fail(f"twins profile_costs: ratios {rep['cost_ratios']}")
+    # whole prompts with no prefix cache: prefills take no paged window
+    _require_launches("twins profile_costs", launches, ("int8_matmul", "paged_decode"))
+
+    row["cut"] = {
+        "cascade_demo": {"target_prefix_cache": [True, False]},
+        "quant_format": {k: [v, qf.SIZES["cuda"][k]] for k, v in TWINS_QF.items()},
+        "actquant": {"quick": [True, False]},
+        "profile_costs": {"tiers": [TWINS_PROFILE_TIERS, pc.TIERS],
+                          **{k: [v, getattr(pc.synthetic_config(), k)]
+                             for k, v in TWINS_PROFILE_GRID.items()}}}
+    row["seconds"] = time.perf_counter() - t_phase
+    row["launches"] = total
+    emit(row)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
 
 
 def _same_arrays(a: dict, b: dict) -> bool:
@@ -3820,12 +3955,17 @@ def main() -> int:
     paths["graphs"] = timed("graphs", phase_graphs, dev, tier0, int4_engines, tier0_w8a8)
     paths["http"] = timed("http", phase_http, dev, tier0, int4_engines, tier0_w8a8)
     timed("step", phase_step, [*int4_engines, tier0_w8a8])
-    # the INT4 tiers once more with f32 activations, on the same weights
-    timed("step", phase_step, [_twin(e, torch.float32) for e in int4_engines])
+    # the INT4 tiers once more with f32 activations, on the same weights cut
+    # to their first STEP_F32_LAYERS layers
+    timed("step", phase_step, [_twin(e, torch.float32, layers=STEP_F32_LAYERS)
+                               for e in int4_engines],
+          [e.spec.n_layers for e in int4_engines])
     del tier0, tier0_w8a8, int4_engines
     gc.collect()
     torch.cuda.empty_cache()
-    paths["rehearsal"] = timed("rehearsal", phase_rehearsal, dev)
+    with tempfile.TemporaryDirectory(prefix="asd_tiers_") as ckpt_dir:
+        paths["rehearsal"] = timed("rehearsal", phase_rehearsal, dev, ckpt_dir)
+        paths["twins"] = timed("twins", phase_twins, dev, ckpt_dir)
     paths["load"] = timed("load", phase_load, dev)
     paths["tp"] = timed("tp", phase_tp, dev)
     timed("path_shapes", phase_path_shapes, dev)

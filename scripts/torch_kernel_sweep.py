@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's INT8 matmul and paged attention kernels on one
-NVIDIA GPU: at their table shapes, and at each value of five choices.
+"""Time the PyTorch port's matmul and paged attention kernels on one NVIDIA
+GPU: at their table shapes, and at each value of five choices.
 
     python3 scripts/torch_kernel_sweep.py [--root DIR] [--tag NAME] [--pps 1 2 4]
         [--window-rows 16 32 64] [--int8-blocks 2,16 4,16] [--int8-stages 3 4]
@@ -15,10 +15,20 @@ window kernel at three shapes: its table shape (both models), the pipeline's
 verify over a cached prefix (14B heads, f32 and bf16: 148 positions after 384
 cached tokens, bucketed to 192) and a 512-token prefill through the window
 path (7B and 0.5B heads in bf16, 14B heads in f32); each attention row is held against
-its plain version (the window's valid rows only). ``chip_smoke.py`` gives the
+its plain version (the window's valid rows only). The grouped INT4 kernel
+(groups of 128 rows) at the smoke's decode shapes: every projection of
+Qwen2.5-14B and 32B at M = 1 and 4, bf16 and f32 x; the W8A8 kernel at the
+smoke's: Qwen2.5-7B's five projections at M = 1, 4 and 8, bf16 x (it must
+equal its plain version bit for bit); and the Qwen2.5-72B width of
+``scripts/torch_quant_format_bench.py`` (vocabulary 32768, bf16 x, M = 1 and
+its batch of 8): every projection in INT8, W8A8 and INT4, the 72B
+``down_proj`` in INT8 only (its packed rows do not split evenly, so the
+bench's INT4 tier keeps it INT8). ``chip_smoke.py`` gives the
 same rows' bounds, plain times and library yardstick. The summary adds up one
 decode step's INT8 and paged decode time per model (``decode_step_us``): at
-M = 1 with the lane of 545 tokens, at M = 4 with the table's four lanes.
+M = 1 with the lane of 545 tokens, at M = 4 with the table's four lanes; and a
+72B-width layer's four projections per weight format at M = 1 and 8
+(``layer_matmul_us``), the matmul share of the bench's per-layer ms.
 ``--root`` imports ``adaptive_sd_tpu_torch`` from another checkout (an
 unpacked parent commit), so that two versions are timed on one card in one
 call: run parent, change, change, parent.
@@ -82,6 +92,10 @@ ATTN_MODELS = (*((m, dt, G, n_kv, 128) for m, dt, G, n_kv, *_ in MODELS),
 DECODE_ROWS = (("table", (37, 300, 1000, 1)), ("scheduler 8 lanes",
                (40, 128, 129, 250, 380, 500, 640, 660)), ("long context", (4100, 37, 300, 1)),
                ("one lane", (545,)))
+# the 72B width of scripts/torch_quant_format_bench.py: (model, hidden, q
+# heads, kv heads, ffn, vocab)
+QF_72B = ("qwen2.5-72b", 8192, 64, 8, 29568, 32768)
+QF_M = (1, 8)
 TOL = {torch.bfloat16: dict(rtol=1e-2, atol=2e-2), torch.float32: dict(rtol=1e-4, atol=1e-4)}
 ATTN_TOL = {torch.bfloat16: dict(rtol=1e-2, atol=1e-2), torch.float32: dict(rtol=1e-4, atol=1e-5)}
 
@@ -119,6 +133,48 @@ def int8_rows(dev, g):
             for M in (1, 4):
                 x = torch.randn(M, K, generator=g, device=dev).to(dtype)
                 out.append((f"int8 {model}:{proj} M={M}", x, q, scale))
+    return out
+
+
+def _proj(H, n_q, n_kv, F, V, D=128):
+    return {"qkv": (H, (n_q + 2 * n_kv) * D), "o": (n_q * D, H), "gateup": (H, 2 * F),
+            "down": (F, H), "lm_head": (H, V)}
+
+
+def mm_rows(dev, g):
+    """(label, kernel, x, q, scale): the grouped INT4 and W8A8 kernels at the
+    smoke's decode shapes, and the three formats at the 72B width."""
+    out = []
+
+    def weights(kernel, K, N):
+        if kernel == "int4":
+            q = torch.randint(-128, 128, (K // 2, N), generator=g, device=dev, dtype=torch.int8)
+            scale = (1.0 + 0.1 * torch.rand(K // 128, N, generator=g, device=dev)) / (4 * K ** 0.5)
+        else:
+            q = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+            scale = torch.rand(N, generator=g, device=dev) / (64 * K ** 0.5)
+        return q, scale
+
+    def add(kernel, model, proj, K, N, Ms, dtypes):
+        q, scale = weights(kernel, K, N)
+        for dtype in dtypes:
+            for M in Ms:
+                x = torch.randn(M, K, generator=g, device=dev).to(dtype)
+                tag = "" if dtype == torch.bfloat16 else " f32"
+                out.append((f"{kernel} {model}:{proj} M={M}{tag}", kernel, x, q, scale))
+
+    for model, H, n_q, n_kv, F in (("qwen2.5-14b", 5120, 40, 8, 13824),
+                                   ("qwen2.5-32b", 5120, 40, 8, 27648)):
+        for proj, (K, N) in _proj(H, n_q, n_kv, F, 152064).items():
+            add("int4", model, proj, K, N, (1, 4), (torch.bfloat16, torch.float32))
+    for proj, (K, N) in _proj(3584, 28, 4, 18944, 152064).items():
+        add("w8a8", "qwen2.5-7b", proj, K, N, (1, 4, 8), (torch.bfloat16,))
+    model, H, n_q, n_kv, F, V = QF_72B
+    for proj, (K, N) in _proj(H, n_q, n_kv, F, V).items():
+        for kernel in ("int8", "w8a8", "int4"):
+            if kernel == "int4" and proj == "down":
+                continue
+            add(kernel, model, proj, K, N, QF_M, (torch.bfloat16,))
     return out
 
 
@@ -168,7 +224,21 @@ def attn_rows(dev, g):
     return out
 
 
-def time_all(MQ, A, timer, int8, attn, tag, us, outs=None):
+def time_all(MQ, A, timer, int8, attn, tag, us, outs=None, mm=()):
+    for label, kernel, x, q, scale in mm:
+        fn, ref = {"int8": (MQ.int8_matmul_cuda, MQ.quantized_matmul_ref),
+                   "int4": (MQ.int4_matmul_cuda,
+                            lambda *a: MQ.quantized_matmul_ref(*a, bits=4)),
+                   "w8a8": (MQ.int8x8_matmul_cuda, MQ.quantized_matmul_w8a8_ref)}[kernel]
+        got, want = fn(x, q, scale), ref(x, q, scale)
+        if kernel == "w8a8":  # int32 sums: the kernel equals its plain version
+            if not torch.equal(got, want):
+                raise SystemExit(f"{tag} {label}: W8A8 differs from its plain version")
+        else:
+            torch.testing.assert_close(got.float(), want.float(), **TOL[x.dtype])
+        t = timer(lambda: fn(x, q, scale))
+        us.setdefault(tag, {}).setdefault(label, []).append(t)
+        print(json.dumps({"version": tag, "row": label, "us": t}), flush=True)
     for label, x, q, scale in int8:
         torch.testing.assert_close(MQ.int8_matmul_cuda(x, q, scale).float(),
                                    MQ.quantized_matmul_ref(x, q, scale).float(), **TOL[x.dtype])
@@ -277,6 +347,23 @@ def decode_steps(us: dict) -> dict:
     return out
 
 
+def layer_matmuls(us: dict) -> dict:
+    """Device microseconds of one 72B-width layer's four projections per
+    weight format and version (INT4's ``down_proj`` in INT8, as the bench
+    runs it), at each of QF_M."""
+    out = {}
+    model = QF_72B[0]
+    for tag, rows in us.items():
+        mean = {k: sum(v) / len(v) for k, v in rows.items()}
+        for fmt in ("int8", "w8a8", "int4"):
+            for m in QF_M:
+                keys = [f"{'int8' if (fmt, p) == ('int4', 'down') else fmt} {model}:{p} M={m}"
+                        for p in ("qkv", "o", "gateup", "down")]
+                if all(k in mean for k in keys):
+                    out.setdefault(tag, {})[f"{fmt} {model} M={m}"] = sum(mean[k] for k in keys)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(REPO))
@@ -299,10 +386,10 @@ def main() -> int:
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    int8, attn = int8_rows(dev, g), attn_rows(dev, g)
+    int8, attn, mm = int8_rows(dev, g), attn_rows(dev, g), mm_rows(dev, g)
     timer, us = Timer(dev), {}
     outs = {}
-    time_all(MQ, A, timer, int8, attn, args.tag or args.root, us, outs)
+    time_all(MQ, A, timer, int8, attn, args.tag or args.root, us, outs, mm)
     if args.outputs and Path(args.outputs).exists():
         saved = torch.load(args.outputs)
         print(json.dumps({"version": args.tag or args.root, "outputs_of": args.outputs,
@@ -344,7 +431,8 @@ def main() -> int:
                                      if k.startswith("int8") and k.endswith(f"M={m}"))
                   for m in (1, 4)} for tag, rows in us.items()}
     print(json.dumps({"device": torch.cuda.get_device_name(0), "us": us, "int8_sums": sums,
-                      "decode_step_us": decode_steps(us), "host_us": host}))
+                      "decode_step_us": decode_steps(us), "layer_matmul_us": layer_matmuls(us),
+                      "host_us": host}))
     return 0
 
 

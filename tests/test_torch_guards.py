@@ -30,7 +30,10 @@ for name in names:
 import chip_smoke
 for script in ("torch_real_smoke", "torch_train_predictor", "torch_int4_agreement_probe",
                "torch_trained_cascade_eval", "torch_load_bench", "torch_sched_bench",
-               "torch_gloo_cuda_probe", "torch_serve", "torch_evaluate"):
+               "torch_gloo_cuda_probe", "torch_serve", "torch_evaluate",
+               "torch_quant_format_bench", "torch_profile_costs", "torch_cascade_demo",
+               "torch_sched_probe", "torch_actquant_eval", "torch_run_baselines",
+               "torch_theory_demo", "torch_build_datasets"):
     spec = importlib.util.spec_from_file_location(script, f"scripts/{script}.py")
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 absent = ("jax", "adaptive_sd_tpu", "safetensors", "optax", "sklearn", "transformers", "yaml",
