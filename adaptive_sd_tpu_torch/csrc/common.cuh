@@ -51,6 +51,31 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// Sum the K splits' partial sums partial[splits][M][N] in split order, then
+// times the per-column scale (null: the sums are scaled already).
+template <typename T>
+__global__ void splitk_reduce_kernel(const float* __restrict__ partial,
+                                     const float* __restrict__ scale, T* __restrict__ out, int M,
+                                     int N, int splits) {
+  const size_t total = (size_t)M * N;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  float s = 0.f;
+  for (int z = 0; z < splits; ++z) s = __fadd_rn(s, partial[(size_t)z * total + i]);
+  out[i] = from_f<T>(scale != nullptr ? __fmul_rn(s, scale[i % N]) : s);
+}
+
+template <typename T>
+inline int add_splits(const void* partial, const void* scale, void* out, int M, int N,
+                      int splits, cudaStream_t stream) {
+  const size_t total = (size_t)M * N;
+  const int threads = 256;
+  splitk_reduce_kernel<T><<<(unsigned)((total + threads - 1) / threads), threads, 0, stream>>>(
+      static_cast<const float*>(partial), static_cast<const float*>(scale),
+      static_cast<T*>(out), M, N, splits);
+  return (int)cudaGetLastError();
+}
+
 // Opt in to more than 48 KB of dynamic shared memory, once per size.
 template <typename K>
 inline cudaError_t ensure_smem(K kernel, size_t bytes, size_t* done) {

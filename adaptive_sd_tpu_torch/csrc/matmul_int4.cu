@@ -17,29 +17,42 @@
 // * Prefill and verify windows (M in the hundreds to thousands): bf16
 //   tensor-core operations (2*M*K*N, three times that for f32 x).
 //
-// Design: one kernel for every M and both scale layouts, on the tensor cores
-// (mma.sync.m16n8k16, bf16 in, f32 accumulators). The weights are the MMA's
-// A operand (16 output columns by 16 k-rows), x its B operand (16 k-rows by
-// 8 tokens), so a decode step pads its M rows to 8 (or 16), not to 16 (or 32).
-// * A warp owns CW output columns (CW / 16 weight tiles) and NT tiles of 8
-//   tokens. Decode (M <= 16): 4 warps of 64 columns and 8 or 16 tokens, the
-//   K split across blocks, registers capped so that 3-4 blocks share an SM.
-//   Windows: warps of 32 columns and 64 tokens; 64-row tiles of 4 warps for
-//   bf16 x, 128-row tiles of 8 warps for f32 x.
-// * Packed tiles of q (32 packed rows x the block's columns) and the matching
-//   x tiles (32 columns of each half) arrive through a cp.async ring in shared
-//   memory (3 stages for decode and f32 windows, 4 for bf16 windows), one
+// Design: one kernel library for every M and both scale layouts, on the
+// tensor cores, bf16 in, f32 accumulators. The weights are the MMA's A
+// operand (16 output columns by 16 k-rows a warp), x its B operand, so a
+// decode step pads its M rows to 8 (or 16), not to 16 (or 32).
+// * Decode tiles (M <= 16), mma.sync.m16n8k16 (B: 16 k-rows by 8 tokens):
+//   4 warps of 64 columns and 8 or 16 tokens, the K split across blocks,
+//   registers capped so that 3-4 blocks share an SM. Packed tiles of q (32
+//   packed rows x the block's columns) and the matching x tiles (32 columns
+//   of each half) arrive through a cp.async ring in shared memory, one
 //   __syncthreads a stage (two for f32 x, whose split is shared). Each
 //   thread's copy addresses are worked out once, not per stage: a decode
 //   stage's instructions, not its bytes, set its time.
+// * Window tiles (M > 16), wgmma.mma_async.m64nNk16 (wgmma.cuh WgmmaTile):
+//   128 columns by 128 tokens a block for bf16 x (64 for f32 x, whose
+//   stages hold raw x and its planes), two consumer warpgroups of 64
+//   columns (the m64 A tile from registers) over the block's tokens (the B
+//   tile of each half, read by the tensor cores from shared memory), and a
+//   producer warpgroup that keeps a ring of stages filled by TMA and, for
+//   f32 x, splits x into its three bf16 planes. A consumer runs each stage
+//   as two 32-row chunks (low half, high half) in a software pipeline with
+//   two sets of accumulators. Where the M x N tiles cannot fill the SMs, the
+//   K splits run in blocks of their own and the reduction below adds them.
+//   x or q at unaligned addresses, and groups whose boundary falls inside a
+//   32-row half (GMODE 2), take the mma.sync window tile: warps of 32
+//   columns and 64 tokens, 64-row tiles of 4 warps for bf16 x, 128-row
+//   tiles of 8 warps for f32 x, adding the splits in turn.
 // * q is [K/2, N] row-major, so two consecutive k of one column are not one
-//   word. A thread reads CW / 8 bytes (one LDS) of each of its four k-rows of
-//   a k-step; bytes 2i and 2i + 1 are the columns of rows g and g + 8 of its
-//   weight tile i (g = lane / 4). The same staged bytes feed the low-nibble
+//   word. A mma.sync thread reads CW / 8 bytes (one LDS) of each of its
+//   four k-rows of a k-step; bytes 2i and 2i + 1 are the columns of rows g
+//   and g + 8 of its weight tile i (g = lane / 4); a wgmma thread reads 2
+//   bytes, its rows g and g + 8. The same staged bytes feed the low-nibble
 //   tiles (rows r, against x[:, r]) and then, shifted by 4, the high-nibble
-//   ones (rows K/2 + r, against x[:, K/2 + r]). q stages are XOR-swizzled by
-//   16-byte chunk and x stages padded, so the loads (ldmatrix for x) are free
-//   of bank conflicts. No second copy of the weights.
+//   ones (rows K/2 + r, against x[:, K/2 + r]). Staged tiles are swizzled
+//   (mma.sync: q by 16-byte chunk, x padded; wgmma: TMA's 128- and 64-byte
+//   swizzles), so the loads are free of bank conflicts. No second copy of
+//   the weights.
 // * Nibbles become bf16 in registers without a convert: a __byte_perm puts
 //   byte j of two k-rows into the low bytes of two 16-bit halves, one lop3
 //   masks the nibbles and XORs them with 0x4308 (the XOR with 8 turns two's
@@ -71,17 +84,19 @@
 // * One sum order per output at every M: K is split where the N / 128
 //   column blocks cannot fill the SMs, by N and K alone. Decode tiles run
 //   one split a block and a second kernel adds the splits' sums in order;
-//   window tiles run every split in turn and add the splits' sums, kept in
-//   shared memory, in the same order. Every output is a dot product of its
-//   own within an MMA, so where an output sits in a tile does not change it:
-//   an output row is computed by the same operations in either tile, bit for
-//   bit, and decode steps and verify windows of one tier agree (the tensor
-//   cores' truncating accumulation would otherwise flip near-tied greedy
-//   tokens between the two).
+//   window tiles run the same splits, each half's 32-row sums from zero
+//   folded in the same order, and add the splits' sums in the same order.
+//   wgmma and mma.sync sum 16 products into f32 in the same order (measured
+//   bit for bit, scripts/torch_mma_order_probe.py), and every output is a
+//   dot product of its own within an MMA, so where an output sits in a tile
+//   does not change it: an output row is computed by the same operations in
+//   every tile, bit for bit, and decode steps and verify windows of one
+//   tier agree (the tensor cores' truncating accumulation would otherwise
+//   flip near-tied greedy tokens between the two).
 // * Per-channel: one accumulator, scale[N] applied once after the reduction.
 #include <type_traits>
 
-#include "mma_bf16.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -97,9 +112,10 @@ using Tile = asd::MmaTile<T, kXCols, NT, CW, WM, WN, STAGES, ALL_SPLITS, MINB>;
 // spills.
 template <typename T, int NT>
 using DecodeTile = Tile<T, NT, 64, 1, 4, 3, false, NT == 1 ? 4 : 3>;
-// Windows: warps of 32 columns and 64 tokens; for bf16 x 64-row tiles of 4
-// warps (85 KB, two blocks an SM), for f32 x 128-row tiles of 8 warps, whose
-// raw and split x tiles fill 226 KB with 3 stages (one block an SM).
+// Windows of unaligned x or q, or of groups that end inside a stage half:
+// warps of 32 columns and 64 tokens; for bf16 x 64-row tiles of 4 warps
+// (85 KB, two blocks an SM), for f32 x 128-row tiles of 8 warps, whose raw
+// and split x tiles fill 226 KB with 3 stages (one block an SM).
 template <typename T>
 using WindowTile = std::conditional_t<sizeof(T) == 2, Tile<T, 8, 32, 1, 4, 4, true>,
                                       Tile<T, 8, 32, 2, 4, 3, true>>;
@@ -384,18 +400,177 @@ int4_matmul_mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
       }
 }
 
-// Sum the K splits; `scale` is the per-channel scale or null (grouped partial
-// sums are scaled already).
-template <typename T>
-__global__ void int4_splitk_reduce_kernel(const float* __restrict__ partial,
-                                          const float* __restrict__ scale,
-                                          T* __restrict__ out, int M, int N, int splits) {
-  const size_t total = (size_t)M * N;
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += partial[(size_t)z * total + i];
-  out[i] = asd::from_f<T>(scale != nullptr ? s * scale[i % N] : s);
+// Window tiles on the warpgroup MMA (wgmma.cuh WgmmaTile), 16-byte aligned
+// x and q, per-channel or grouped scales with every 32-row half of a stage
+// in one group (GMODE 0, 1): 128 output columns by BM tokens a block, blocks
+// along M first (grid.x), so that the M tiles of a column block share its
+// weights in L2. A stage's x tile is one TMA box of each half (x's columns
+// r0 .. and K/2 + r0 ..). A consumer runs each stage as two chunks, the low
+// nibbles' rows and then the high ones', in a software pipeline: the MMAs
+// of chunk q run into t[q % 2] while the thread folds chunk q - 1's sums
+// (times its group's scale) into acc and converts chunk q + 1's weights.
+// With SPLIT a block runs one K split (grid.z) and writes its partial sums,
+// which the split-K reduction adds in order as for the decode tiles; else a
+// block runs every split in turn and adds their sums, kept in shared
+// memory, in the same order. Either way a row gets the decode tiles' bits:
+// the same 32-row sums of each half from zero (wgmma and mma.sync sum 16
+// products in the same order), folded with round-to-nearest f32 in order,
+// the same splits in the same order.
+template <typename T, typename C, int GMODE, bool SPLIT>
+__global__ void __launch_bounds__(C::kThreads, 1)
+int4_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tx0,
+                         const __grid_constant__ CUtensorMap tx1,
+                         const float* __restrict__ scale, T* __restrict__ out,
+                         float* __restrict__ partial, int M, int N, int K, int gs,
+                         int r_per_split) {
+  static_assert(GMODE != 2, "a group boundary inside a stage half takes the mma.sync tile");
+  using I0 = std::integral_constant<int, 0>;
+  using I1 = std::integral_constant<int, 1>;
+  constexpr bool GROUPED = GMODE != 0;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = asd::align1024(smem_raw);
+  constexpr int NA = C::kAcc, S = C::kStages;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kBarOffset);
+  uint64_t* empty = full + S;
+  uint64_t* loaded = empty + S;
+  float* total = reinterpret_cast<float*>(smem + S * C::kStageBytes);
+
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int m0 = blockIdx.x * C::BM, nb = blockIdx.y * C::BN;
+  const int Kh = K / 2;
+  const int r_begin = SPLIT ? blockIdx.z * r_per_split : 0;
+  const int r_end = SPLIT ? min(Kh, r_begin + r_per_split) : Kh;
+  const int n_st = (r_end - r_begin + kBKP - 1) / kBKP;
+  if (tid == 0) asd::init_barriers<C>(full, empty, loaded);
+  __syncthreads();
+
+  // warpgroup c (c from a shuffle is known to be the same in a warp, so that
+  // the MMAs are not serialized as if the role branch diverged); c = 2 is
+  // the producer
+  const int c = __shfl_sync(0xffffffffu, tid / 128, 0);
+  if (c == C::kConsumers / 128) {
+    asd::setmaxnreg_dec<C::kProducerRegs>();
+    asd::produce<C>(smem, full, empty, loaded, &tq, &tx0, &tx1, nb, m0, r_begin, n_st,
+                    tid - C::kConsumers);
+    return;
+  }
+  asd::setmaxnreg_inc<C::kConsumerRegs>();
+  const int w = (tid / 32) % 4, g = lane / 4, tig = lane % 4;
+  const int col = 64 * c + 16 * w + 2 * g;  // the thread's columns col, col + 1
+  const int gn = nb + col;
+  const int gs_shift = (gs > 0 && (gs & (gs - 1)) == 0) ? __ffs(gs) - 1 : -1;
+  auto group_of = [&](int row) { return gs_shift >= 0 ? row >> gs_shift : row / gs; };
+  float acc[NA], t[2][NA];
+#pragma unroll
+  for (int e = 0; e < NA; ++e) acc[e] = 0.f;
+  if constexpr (!SPLIT) {
+    for (int e = 0; e < NA; ++e) total[e * C::kConsumers + tid] = 0.f;
+  }
+  uint32_t wd[2][4][1];  // the stage's weight bytes, shifted for the high half
+  uint32_t a[2][2][4];   // the A fragments of the chunks in flight, [half][k-step]
+  int cur[2] = {-1, -1};  // the group each half's rows belong to now
+  float sc[2][2] = {};    // its scales at the thread's columns
+  // B tiles by descriptor: a stage's, a half's and a term's offsets added to slot 0's
+  const uint64_t desc0 = asd::kmajor_desc<64>(smem + C::b_off(0, 0));
+  const int split_stages = (r_per_split + kBKP - 1) / kBKP;  // stages a split (splits > 1: whole)
+  int split_left = split_stages;
+
+  // chunk q (half h = q % 2 of stage q / 2): wait for its stage, convert its
+  // weights, issue its MMAs
+  auto issue = [&](auto H, int q) {
+    constexpr int h = decltype(H)::value;
+    const int it = q / 2, slot = it % S;
+    const uint8_t* st = smem + slot * C::kStageBytes;
+    if (h == 0) {
+      asd::mbar_wait(&full[slot], (it / S) & 1);
+      asd::q_words(st, col, tig, wd);
+    } else {
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) wd[ks][r][0] >>= 4;
+    }
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) a_frag<1>(wd[ks], 0, 0xFFFFFFFFu, 0xFFFFFFFFu, a[h][ks]);
+    const int r0 = r_begin + it * kBKP;
+    if constexpr (GROUPED) {
+      const int grp = group_of(h * Kh + r0);
+      if (grp != cur[h]) {
+        cur[h] = grp;
+        const float* srow = scale + (size_t)grp * N;
+        sc[h][0] = gn < N ? __ldg(srow + gn) : 0.f;
+        sc[h][1] = gn < N ? __ldg(srow + gn + 1) : 0.f;
+      }
+    }
+    const int n_rows = min(kBKP, r_end - r0);  // rows past r_end are zero weights
+    asd::fence_operand(t[h]);
+    asd::fence_operand(a[h][0]);
+    asd::fence_operand(a[h][1]);
+    asd::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      if (ks * 16 >= n_rows) break;
+#pragma unroll
+      for (int tm = 0; tm < C::kTerms; ++tm) {  // + 32 bytes a k-step
+        const int off = slot * C::kStageBytes + C::b_off(h, tm) - C::b_off(0, 0) + ks * 32;
+        asd::wgmma_m64<C::BM>(t[h], a[h][ks], desc0 + (off >> 4), ks + tm > 0);
+      }
+    }
+    asd::wgmma_commit();
+  };
+  // chunk q, whose MMAs are complete: fold its sums; after the high half,
+  // release the stage and end its split
+  auto finish = [&](auto H, int q) {
+    constexpr int h = decltype(H)::value;
+    asd::fence_operand(t[h]);
+#pragma unroll
+    for (int e = 0; e < NA; ++e)
+      acc[e] = GROUPED ? fmaf(t[h][e], sc[h][(e % 4) / 2], acc[e]) : acc[e] + t[h][e];
+    if (h == 0) return;
+    const int it = q / 2;
+    asd::release_stage(empty, it % S, lane);
+    if constexpr (!SPLIT) {
+      if (--split_left == 0 || it == n_st - 1) {  // a split ends
+        split_left = split_stages;
+#pragma unroll
+        for (int e = 0; e < NA; ++e) {
+          total[e * C::kConsumers + tid] += acc[e];
+          acc[e] = 0.f;
+        }
+      }
+    }
+  };
+  for (int q = 0; q < 2 * n_st; q += 2) {
+    issue(I0{}, q);
+    if (q > 0) {
+      asd::wgmma_wait<1>();
+      finish(I1{}, q - 1);
+    }
+    issue(I1{}, q + 1);
+    asd::wgmma_wait<1>();
+    finish(I0{}, q);
+  }
+  asd::wgmma_wait<0>();
+  finish(I1{}, 2 * n_st - 1);
+
+  if (gn >= N) return;
+  if constexpr (SPLIT) {
+    float* pp = partial + (size_t)blockIdx.z * M * N + gn;
+    asd::for_each_token<C>(acc, tig, [&](int tok, const float (&v)[2]) {
+      if (m0 + tok < M) asd::store2(pp + (size_t)(m0 + tok) * N, v);
+    });
+  } else {
+#pragma unroll
+    for (int e = 0; e < NA; ++e) acc[e] = total[e * C::kConsumers + tid];
+    const float s0 = GROUPED ? 1.f : __ldg(scale + gn), s1 = GROUPED ? 1.f : __ldg(scale + gn + 1);
+    asd::for_each_token<C>(acc, tig, [&](int tok, const float (&v)[2]) {
+      if (m0 + tok >= M) return;
+      const float o[2] = {GROUPED ? v[0] : v[0] * s0, GROUPED ? v[1] : v[1] * s1};
+      asd::store2(out + (size_t)(m0 + tok) * N + gn, o);
+    });
+  }
 }
 
 template <typename T, typename C, int GMODE>
@@ -413,13 +588,50 @@ int launch(const void* x, const void* q, const void* scale, void* out, void* par
   return (int)cudaGetLastError();
 }
 
+// Window tiles on wgmma: for bf16 x 128 tokens and 6 stages (185 KB of
+// shared memory); for f32 x, whose stages hold each half's raw x tile and
+// its planes, 64 tokens and 4 stages (209 KB).
+template <typename T>
+using WgmmaWindowTile = std::conditional_t<sizeof(T) == 2, asd::WgmmaTile<T, 2, 6, 128>,
+                                           asd::WgmmaTile<T, 2, 4, 64>>;
+
+template <typename T, int GMODE, bool SPLIT>
+int launch_wgmma(const void* x, const void* q, const void* scale, void* out, void* partial,
+                 int M, int N, int K, int gs, int splits, int r_per_split, cudaStream_t stream) {
+  using C = WgmmaWindowTile<T>;
+  CUtensorMap tq, tx[2];
+  if (!asd::window_tmaps<T>(&tq, tx, x, q, M, N, K, K / 2, 2, C::BM))
+    return (int)cudaErrorInvalidValue;
+  static size_t smem_done = 0;
+  cudaError_t err =
+      asd::ensure_smem(int4_matmul_wgmma_kernel<T, C, GMODE, SPLIT>, C::kSmem, &smem_done);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((M + C::BM - 1) / C::BM, (N + C::BN - 1) / C::BN, SPLIT ? splits : 1);
+  int4_matmul_wgmma_kernel<T, C, GMODE, SPLIT><<<grid, C::kThreads, C::kSmem, stream>>>(
+      tq, tx[0], tx[1], static_cast<const float*>(scale), static_cast<T*>(out),
+      static_cast<float*>(partial), M, N, K, gs, r_per_split);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int GMODE>
 int run(const void* x, const void* q, const void* scale, void* out, void* partial, int M,
         int N, int K, int gs, int splits, int r_per_split, int vec, int large,
         cudaStream_t stream) {
-  int rc;
-  if (large) {
-    rc = launch<T, WindowTile<T>, GMODE>(x, q, scale, out, partial, M, N, K, gs, splits,
+  int rc = 0;
+  // window tiles take wgmma where the copies are 16-byte ones and every stage
+  // half lies in one group; with a workspace their K splits run in blocks
+  // of their own, as the decode tiles' do
+  const bool wgmma = large && vec && GMODE != 2;
+  const bool split_blocks = splits > 1 && (large ? wgmma && partial != nullptr : true);
+  if (wgmma) {
+    if constexpr (GMODE != 2) {
+      rc = split_blocks ? launch_wgmma<T, GMODE, true>(x, q, scale, out, partial, M, N, K, gs,
+                                                       splits, r_per_split, stream)
+                        : launch_wgmma<T, GMODE, false>(x, q, scale, out, nullptr, M, N, K, gs,
+                                                        splits, r_per_split, stream);
+    }
+  } else if (large) {  // element-wise staging, or a group boundary inside a stage half
+    rc = launch<T, WindowTile<T>, GMODE>(x, q, scale, out, nullptr, M, N, K, gs, splits,
                                          r_per_split, vec, stream);
   } else if (M <= 8) {
     rc = launch<T, DecodeTile<T, 1>, GMODE>(x, q, scale, out, partial, M, N, K, gs, splits,
@@ -428,15 +640,9 @@ int run(const void* x, const void* q, const void* scale, void* out, void* partia
     rc = launch<T, DecodeTile<T, 2>, GMODE>(x, q, scale, out, partial, M, N, K, gs, splits,
                                             r_per_split, vec, stream);
   }
-  if (rc != 0 || large || splits <= 1) return rc;
-  const size_t total = (size_t)M * N;
-  const int threads = 256;
-  int4_splitk_reduce_kernel<T>
-      <<<(unsigned)((total + threads - 1) / threads), threads, 0, stream>>>(
-          static_cast<const float*>(partial),
-          GMODE ? nullptr : static_cast<const float*>(scale), static_cast<T*>(out), M, N,
-          splits);
-  return (int)cudaGetLastError();
+  if (rc != 0 || !split_blocks) return rc;
+  // the per-channel scale after the sum; grouped partial sums are scaled already
+  return asd::add_splits<T>(partial, GMODE ? nullptr : scale, out, M, N, splits, stream);
 }
 
 }  // namespace
@@ -446,9 +652,12 @@ int run(const void* x, const void* q, const void* scale, void* out, void* partia
 // out [M, N] in x's type. r_per_split packed rows per K split (a multiple
 // of 32 when splits > 1). large == 0: decode tiles (M <= 16), one split a
 // block, with partial [splits, M, N] f32 when splits > 1; large != 0:
-// 64-row (bf16) or 128-row (f32) tiles that add up the same splits in turn.
-// vec != 0: N % 16 == 0, K/2 a multiple of 16 bytes of x, and x and q
-// 16-byte aligned (16-byte asynchronous copies); else element-wise staging.
+// window tiles, with vec and every stage half in one group the wgmma tiles,
+// which run the splits in blocks of their own where partial is given, else
+// add them up in turn, otherwise the mma.sync window tile (64 rows for bf16,
+// 128 for f32), in turn. vec != 0: N % 16 == 0, K/2 a multiple of 16 bytes
+// of x, and x and q 16-byte aligned (16-byte asynchronous copies and TMA);
+// else element-wise staging.
 extern "C" int asd_int4_matmul(const void* x, const void* q, const void* scale, void* out,
                                void* partial, int M, int N, int K, int gs, int splits,
                                int r_per_split, int x_is_bf16, int vec, int large,

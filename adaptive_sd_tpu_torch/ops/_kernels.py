@@ -34,7 +34,7 @@ KERNELS = {
     "paged_decode": ("paged_decode.cu", "asd_paged_decode", [_P] * 10 + [_I] * 7 + [_F, _I, _P]),
     "paged_window": ("paged_window.cu", "asd_paged_window", [_P] * 11 + [_I] * 10 + [_F, _I, _P]),
 }
-_HEADERS = ("common.cuh", "mma_bf16.cuh", "paged_attention.cuh")
+_HEADERS = ("common.cuh", "mma_bf16.cuh", "paged_attention.cuh", "wgmma.cuh")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

@@ -45,6 +45,15 @@ _BN = 128           # the INT4 plan's column unit
 
 _INT4_SMALL_M = 16  # M up to which INT4 takes decode tiles (8 or 16 tokens) with a K split
 _INT4_RTILE = 128   # unit of a K split in packed rows (whole 32-row stages of the kernel)
+_INT4_GROUP_STAGE = 32  # rows of a stage half: the wgmma window tile takes groups of multiples
+
+# Window tiles (M > 16) of both weight-only kernels on wgmma (csrc/wgmma.cuh
+# WgmmaTile): 128 tokens by 128 output columns a block (INT4 with f32 x: 64
+# tokens; the split choice below counts 128 for both)
+_WINDOW_BM = 128
+_WINDOW_BN = 128
+# Largest f32 workspace the window tiles' split blocks may take
+_WINDOW_PARTIAL_BYTES = 64 << 20
 
 int8_matmul_counter = _kernels.LaunchCounter()
 int4_matmul_counter = _kernels.LaunchCounter()   # per-channel layout (scale [N])
@@ -89,11 +98,29 @@ def _int8_plan(N: int, K: int, n_sm: int) -> tuple[int, int]:
     return math.ceil(K / k_per), k_per
 
 
+def _window_plan(M: int, N: int, splits: int, n_sm: int) -> tuple[int, int, bool]:
+    """(m_tiles, n_tiles, split_blocks) of the wgmma window tiles (M > 16):
+    128-token by 128-column tiles that cover M and N once. Where they are
+    fewer than the SMs and K is split (``_int8_plan`` / ``_int4_plan``'s
+    split, by N and K only, the decode tiles' split), each split runs in a
+    block of its own and the splits' partial sums (a workspace of at most
+    ``_WINDOW_PARTIAL_BYTES``) are added in split order, as the decode tiles
+    add them; else each block runs the splits in turn and adds them in the
+    same order. Either way a row gets the decode tiles' bits."""
+    m_tiles, n_tiles = math.ceil(M / _WINDOW_BM), math.ceil(N / _WINDOW_BN)
+    split_blocks = (splits > 1 and m_tiles * n_tiles < n_sm
+                    and splits * M * N * 4 <= _WINDOW_PARTIAL_BYTES)
+    return m_tiles, n_tiles, split_blocks
+
+
 def int8_matmul_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Launch the Hopper INT8 kernel: x [M, K] bf16/f32 CUDA, q [K, N] int8,
     scale [N] f32 -> [M, N] in x.dtype. Decode tiles with K split across
-    blocks sum the splits through a workspace allocated here for this call
-    (the tile counters are the stream's, :func:`_kernels.tile_counters`)."""
+    blocks (their last block adds the splits; the tile counters are the
+    stream's, :func:`_kernels.tile_counters`), and window tiles whose splits
+    run in blocks of their own (:func:`_window_plan`; aligned x and q only,
+    else the element-wise ``mma.sync`` window tile), sum the splits through
+    a workspace allocated here for this call."""
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"int8 matmul kernel takes bf16/f32 x, got {x.dtype}")
     if q.dtype != torch.int8 or scale.dtype != torch.float32:
@@ -112,13 +139,18 @@ def int8_matmul_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> t
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
     splits, k_per = _int8_plan(N, K, n_sm)
     stream = _kernels.stream_of(x)
-    partial = counters = None
-    if splits > 1 and M <= _INT8_SMALL_M:
-        partial = torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-        counters = _kernels.tile_counters(x, stream, math.ceil(N / _INT8_BN))
     # 16-byte copies of q rows and x rows
     vec = int(N % 16 == 0 and q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0
               and (K * x.element_size()) % 16 == 0)
+    partial = counters = None
+    if M <= _INT8_SMALL_M:
+        split_blocks = splits > 1
+        if split_blocks:
+            counters = _kernels.tile_counters(x, stream, math.ceil(N / _INT8_BN))
+    else:
+        split_blocks = bool(vec) and _window_plan(M, N, splits, n_sm)[2]
+    if split_blocks:
+        partial = torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
     rc = _kernels.function("int8_matmul")(
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
         partial.data_ptr() if partial is not None else None,
@@ -190,11 +222,17 @@ def int4_matmul_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> t
         return out
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
     large, splits, r_per = _int4_plan(M, N, K, gs, n_sm)
-    partial = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-               if splits > 1 and not large else None)
     # 16-byte copies of q rows and of x rows' halves
     vec = int(N % 16 == 0 and q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0
               and (Kh * x.element_size()) % 16 == 0)
+    if not large:
+        split_blocks = splits > 1
+    else:  # wgmma window tiles: 16-byte copies, every stage half in one group
+        wgmma = vec and (gs == 0 or (gs % _INT4_GROUP_STAGE == 0
+                                     and Kh % _INT4_GROUP_STAGE == 0))
+        split_blocks = wgmma and _window_plan(M, N, splits, n_sm)[2]
+    partial = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
+               if split_blocks else None)
     rc = _kernels.function("int4_matmul")(
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
         partial.data_ptr() if partial is not None else None,

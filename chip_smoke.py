@@ -389,7 +389,10 @@ W8A8_M_WINDOWS = (192, 576, 2304)
 # INT8 rows in the kernels phase beyond decode: verify windows, then prefill
 # M (512 and above), where torch.matmul on the dequantised weight is timed
 # beside the kernel
-INT8_M_WINDOWS = (32, 192, 512, 576, 2304)
+INT8_M_WINDOWS = (32, 64, 128, 192, 512, 576, 2304)
+# Grouped INT4 window rows besides the pipeline's (M_WINDOWS, M_PREFILL): one
+# and two wgmma window tiles of tokens
+INT4_M_EXTRA_WINDOWS = (64, 128)
 # The routing phase: prompts of the frozen suites in data/ per suite (the
 # predictor's training drafts), the tiers' new tokens a draft and a request
 # stage, synthetic rows
@@ -554,14 +557,47 @@ def _ptxas_usage(log: str) -> list:
     return rows
 
 
+def _hgmma_counts(lib) -> dict | None:
+    """HGMMA instructions (wgmma) in the SASS of each wgmma window kernel of
+    a built library, by (mangled) kernel name; None where the toolkit has no
+    cuobjdump."""
+    tool = pathlib.Path(_kernels.nvcc_path()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    counts, name = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            name = ln.split("Function :")[1].strip()
+            if "wgmma_kernel" in name:
+                counts[name] = 0
+            else:
+                name = None
+        elif name is not None and "HGMMA." in ln:
+            counts[name] += 1
+    return counts
+
+
 def phase_build() -> None:
     t0 = time.perf_counter()
     built = _kernels.build(ptxas_verbose=True)
     for name in _kernels.KERNELS:
         _kernels.function(name)  # load; raises if missing
     usage = {name: _ptxas_usage(info["log"]) for name, info in built.items()}
+    # the window tiles of the weight-only matmuls: registers and spills of
+    # each instantiation (the launch's count; its consumer warpgroups raise
+    # theirs to 232 by setmaxnreg), and its wgmma instructions in the SASS
+    windows = {}
+    for name in ("int8_matmul", "int4_matmul"):
+        hgmma = _hgmma_counts(_kernels._lib_path(name))
+        rows = [u for u in usage.get(name, []) if "wgmma_kernel" in u]
+        windows[name] = {"ptxas": rows, "hgmma": hgmma}
+        if hgmma is not None and (not hgmma or min(hgmma.values()) == 0):
+            fail(f"{name}: a window kernel has no wgmma (HGMMA) in its SASS: {hgmma}")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "compiled": {n: i["seconds"] for n, i in built.items()}, "ptxas": usage})
+          "compiled": {n: i["seconds"] for n, i in built.items()}, "ptxas": usage,
+          "window_tiles": windows})
 
 
 def _agg(rows, key):
@@ -715,7 +751,8 @@ def phase_kernels(dev, rates, timer) -> dict:
             shapes = proj_shapes(get_spec(model))
             for M, (proj, (K, N)) in itertools.product(M_DECODES, shapes.items()):
                 int4_case("int4_matmul_grouped", f"{model}:{proj}", M, K, N, 128, dtype)
-            for M, proj in itertools.product(M_WINDOWS, ("qkv", "o", "gateup", "down")):
+            for M, proj in itertools.product(INT4_M_EXTRA_WINDOWS + M_WINDOWS,
+                                             ("qkv", "o", "gateup", "down")):
                 int4_case("int4_matmul_grouped", f"{model}:{proj}", M, *shapes[proj], 128, dtype,
                           reps=3)
             for proj in ("gateup", "down"):

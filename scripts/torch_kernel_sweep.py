@@ -96,6 +96,15 @@ DECODE_ROWS = (("table", (37, 300, 1000, 1)), ("scheduler 8 lanes",
 # heads, kv heads, ffn, vocab)
 QF_72B = ("qwen2.5-72b", 8192, 64, 8, 29568, 32768)
 QF_M = (1, 8)
+# Window rows (M > 16) of the weight-only kernels, each projection of a layer:
+# INT8 at chip_smoke.py's INT8_M_WINDOWS and at 64 and 128 (one and two
+# window tiles of rows), on MODELS (7B bf16, 14B f32); grouped INT4 at the
+# smoke's M_WINDOWS (192, 576) and 64, 128, and at its batch prefill (2304,
+# gateup and down only), on Qwen2.5-14B and 32B, bf16 and f32
+INT8_WINDOW_M = (32, 64, 128, 192, 512, 576, 2304)
+INT4_WINDOW_M = (64, 128, 192, 576)
+INT4_PREFILL_M = 2304
+WINDOW_REPS = 5
 TOL = {torch.bfloat16: dict(rtol=1e-2, atol=2e-2), torch.float32: dict(rtol=1e-4, atol=1e-4)}
 ATTN_TOL = {torch.bfloat16: dict(rtol=1e-2, atol=1e-2), torch.float32: dict(rtol=1e-4, atol=1e-5)}
 
@@ -105,11 +114,12 @@ class Timer:
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
         self.reps = reps
 
-    def __call__(self, fn) -> float:
+    def __call__(self, fn, reps=None) -> float:
+        reps = reps or self.reps
         fn()
         torch.cuda.synchronize()
         total = 0.0
-        for _ in range(self.reps):
+        for _ in range(reps):
             self.flush.zero_()
             torch.cuda._sleep(2_000_000)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -118,7 +128,7 @@ class Timer:
             end.record()
             end.synchronize()
             total += start.elapsed_time(end)
-        return total / self.reps * 1e3  # microseconds
+        return total / reps * 1e3  # microseconds
 
 
 def int8_rows(dev, g):
@@ -134,6 +144,109 @@ def int8_rows(dev, g):
                 x = torch.randn(M, K, generator=g, device=dev).to(dtype)
                 out.append((f"int8 {model}:{proj} M={M}", x, q, scale))
     return out
+
+
+def window_rows(dev, g):
+    """(label, kernel, x, q, scale) of the window rows, labelled "<kernel>
+    window <model>:<proj> M=<M> <type>"."""
+    out = []
+    for model, dtype, G, n_kv, H, F, V, _ in MODELS:
+        for proj, (K, N) in _proj(H, G * n_kv, n_kv, F, V).items():
+            if proj == "lm_head":
+                continue
+            q = torch.randint(-127, 128, (K, N), generator=g, device=dev, dtype=torch.int8)
+            scale = torch.rand(N, generator=g, device=dev) / (64 * K ** 0.5)
+            for M in INT8_WINDOW_M:
+                x = torch.randn(M, K, generator=g, device=dev).to(dtype)
+                out.append((f"int8 window {model}:{proj} M={M} {str(dtype)[6:]}", "int8", x, q,
+                            scale))
+    for model, H, n_q, n_kv, F in (("qwen2.5-14b", 5120, 40, 8, 13824),
+                                   ("qwen2.5-32b", 5120, 40, 8, 27648)):
+        for proj, (K, N) in _proj(H, n_q, n_kv, F, 152064).items():
+            if proj == "lm_head":
+                continue
+            q = torch.randint(-128, 128, (K // 2, N), generator=g, device=dev, dtype=torch.int8)
+            scale = (1.0 + 0.1 * torch.rand(K // 128, N, generator=g, device=dev)) / (4 * K ** 0.5)
+            Ms = INT4_WINDOW_M + ((INT4_PREFILL_M,) if proj in ("gateup", "down") else ())
+            for dtype in (torch.bfloat16, torch.float32):
+                for M in Ms:
+                    x = torch.randn(M, K, generator=g, device=dev).to(dtype)
+                    out.append((f"int4 window {model}:{proj} M={M} {str(dtype)[6:]}", "int4",
+                                x, q, scale))
+    return out
+
+
+def window_sums(us: dict) -> dict:
+    """Microseconds of the window rows summed over their projections, by
+    version, kernel, type and M: PERF.md's window rows (INT8 bf16 is the 7B
+    layer, f32 the 14B one; INT4 the 14B and 32B layers, at 2304 their
+    gateup and down)."""
+    out = {}
+    for tag, rows in us.items():
+        for label, v in rows.items():
+            m = re.match(r"(int[48]) window \S+ M=(\d+) (\w+)$", label)
+            if m:
+                key = f"{m[1]} {m[3]} M={m[2]}"
+                out.setdefault(tag, {}).setdefault(key, 0.0)
+                out[tag][key] += sum(v) / len(v)
+    return out
+
+
+def _int8_dequant_call(x, q, scale):
+    """INT8 as one torch.matmul in x's type dequantising in the call (the
+    smoke's yardstick at window M; the JAX package's XLA route)."""
+    return lambda: (torch.matmul(x, q.to(x.dtype)).float() * scale[None, :]).to(x.dtype)
+
+
+def _int4pack_call(x, q, scale):
+    """torch._weight_int4pack_mm on the same values repacked once (grouped,
+    bf16 x; chip_smoke.py's _int4pack_call), or None where the build refuses
+    it or it differs from the plain version."""
+    from adaptive_sd_tpu_torch.ops.quant import unpack_int4
+
+    conv = getattr(torch, "_convert_weight_to_int4pack", None)
+    fn = getattr(torch, "_weight_int4pack_mm", None)
+    if conv is None or fn is None or x.dtype != torch.bfloat16 or scale.ndim != 2:
+        return None
+    gs = q.shape[0] * 2 // scale.shape[0]
+    u = (unpack_int4(q).to(torch.int32) + 8).t().contiguous()
+    packed = ((u[:, ::2] << 4) | u[:, 1::2]).to(torch.uint8)
+    sz = torch.stack([scale.to(torch.bfloat16), torch.zeros_like(scale, dtype=torch.bfloat16)],
+                     dim=-1).contiguous()
+    try:
+        w = conv(packed, 8)
+        got = fn(x, w, gs, sz)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, TypeError):
+        return None
+    from adaptive_sd_tpu_torch.ops.matmul_q import quantized_matmul_ref
+
+    want = quantized_matmul_ref(x, q, scale, bits=4).float()
+    if not torch.allclose(got.float(), want, rtol=5e-2, atol=0.1):
+        return None  # the call computes another function here: no library time
+    return lambda: fn(x, w, gs, sz)
+
+
+def _int_mm_call(MQ, x, q, scale, pad_rows=32):
+    """W8A8 from PyTorch calls around torch._int_mm, rows zero-padded to 32
+    where it refuses M <= 16 (chip_smoke.py's _int_mm_call)."""
+    fn = getattr(torch, "_int_mm", None)
+    if fn is None:
+        return None
+    M = x.shape[0]
+
+    def call():
+        xq, xs = MQ.quantize_rows_int8(x)
+        if M <= 16:
+            xq = torch.nn.functional.pad(xq, (0, 0, 0, pad_rows - M))
+        return (fn(xq, q)[:M].float() * xs * scale[None, :]).to(x.dtype)
+
+    try:
+        call()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError):
+        return None
+    return call
 
 
 def _proj(H, n_q, n_kv, F, V, D=128):
@@ -224,7 +337,10 @@ def attn_rows(dev, g):
     return out
 
 
-def time_all(MQ, A, timer, int8, attn, tag, us, outs=None, mm=()):
+def time_all(MQ, A, timer, int8, attn, tag, us, outs=None, mm=(), yardsticks=None):
+    """Time every row of ``mm`` (and the INT8 and paged rows), each after
+    holding it against its plain version; where ``yardsticks`` is a dict,
+    the 72B-width rows' plain version and library call are timed into it."""
     for label, kernel, x, q, scale in mm:
         fn, ref = {"int8": (MQ.int8_matmul_cuda, MQ.quantized_matmul_ref),
                    "int4": (MQ.int4_matmul_cuda,
@@ -236,9 +352,21 @@ def time_all(MQ, A, timer, int8, attn, tag, us, outs=None, mm=()):
                 raise SystemExit(f"{tag} {label}: W8A8 differs from its plain version")
         else:
             torch.testing.assert_close(got.float(), want.float(), **TOL[x.dtype])
-        t = timer(lambda: fn(x, q, scale))
+        del got, want
+        t = timer(lambda: fn(x, q, scale), WINDOW_REPS if x.shape[0] > 16 else None)
         us.setdefault(tag, {}).setdefault(label, []).append(t)
         print(json.dumps({"version": tag, "row": label, "us": t}), flush=True)
+        if yardsticks is not None and QF_72B[0] in label:
+            lib = {"int8": lambda: _int8_dequant_call(x, q, scale),
+                   "int4": lambda: _int4pack_call(x, q, scale),
+                   "w8a8": lambda: _int_mm_call(MQ, x, q, scale)}[kernel]()
+            row = {"plain_us": timer(lambda: ref(x, q, scale)),
+                   "library_us": timer(lib) if lib else None,
+                   "library": {"int8": "torch.matmul dequantising in the call",
+                               "int4": "torch._weight_int4pack_mm",
+                               "w8a8": "torch._int_mm, rows padded to 32 at M <= 16"}[kernel]}
+            yardsticks[label] = row
+            print(json.dumps({"version": tag, "row": label, **row}), flush=True)
     for label, x, q, scale in int8:
         torch.testing.assert_close(MQ.int8_matmul_cuda(x, q, scale).float(),
                                    MQ.quantized_matmul_ref(x, q, scale).float(), **TOL[x.dtype])
@@ -374,6 +502,8 @@ def main() -> int:
     ap.add_argument("--int8-stages", type=int, nargs="*", default=[])
     ap.add_argument("--int8-warps", nargs="*", default=[])
     ap.add_argument("--outputs", default=None)
+    ap.add_argument("--only", default=None,
+                    help="time only the rows whose label matches this regular expression")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -387,9 +517,13 @@ def main() -> int:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     int8, attn, mm = int8_rows(dev, g), attn_rows(dev, g), mm_rows(dev, g)
+    mm += window_rows(dev, g)
+    if args.only:
+        keep = re.compile(args.only).search
+        int8, attn, mm = ([r for r in rows if keep(r[0])] for rows in (int8, attn, mm))
     timer, us = Timer(dev), {}
-    outs = {}
-    time_all(MQ, A, timer, int8, attn, args.tag or args.root, us, outs, mm)
+    outs, yardsticks = {}, {}
+    time_all(MQ, A, timer, int8, attn, args.tag or args.root, us, outs, mm, yardsticks)
     if args.outputs and Path(args.outputs).exists():
         saved = torch.load(args.outputs)
         print(json.dumps({"version": args.tag or args.root, "outputs_of": args.outputs,
@@ -397,7 +531,8 @@ def main() -> int:
                                          for k, v in outs.items() if k in saved}}), flush=True)
     elif args.outputs:
         torch.save(outs, args.outputs)
-    host = {args.tag or args.root: host_rows(MQ, A, Q, int8, attn, dev, g)}
+    host = ({args.tag or args.root: host_rows(MQ, A, Q, int8, attn, dev, g)}
+            if not args.only else {})
     for n in [*args.int8_blocks, *reversed(args.int8_blocks)]:
         saved, MQ._INT8_BLOCKS_PER_SM = MQ._INT8_BLOCKS_PER_SM, tuple(map(int, n.split(",")))
         time_all(MQ, A, timer, int8, [], f"int8_blocks_per_sm={n}", us)
@@ -432,6 +567,7 @@ def main() -> int:
                   for m in (1, 4)} for tag, rows in us.items()}
     print(json.dumps({"device": torch.cuda.get_device_name(0), "us": us, "int8_sums": sums,
                       "decode_step_us": decode_steps(us), "layer_matmul_us": layer_matmuls(us),
+                      "window_us": window_sums(us), "yardsticks_72b": yardsticks,
                       "host_us": host}))
     return 0
 

@@ -438,10 +438,15 @@ def test_scheduler_on_card_matches_cpu(cuda, act_quant):
         assert [t[:32] for t in card["roomy"][0]] == [t[:32] for t in cpu["roomy"][0]]
 
 
-# Tile edges of the INT4 and W8A8 tensor-core kernels: INT4 decode tiles of 8
-# and 16 tokens and W8A8 16-row tiles up to M = 16, 64-row (INT4 bf16) and
-# 128-row tiles above, every partial tile.
-_EDGE_M = [1, 2, 7, 8, 9, 15, 16, 17, 63, 64, 65, 128, 129, 300, 2304]
+# Tile edges of the tensor-core matmul kernels: decode tiles of 8 and 16
+# tokens (W8A8: 16 rows) up to M = 16; above, the INT8 and INT4 wgmma window
+# tiles of 128 tokens (64 for INT4 f32), the mma.sync window tiles of 64 and
+# 128 rows, W8A8's 128-row tiles, every partial tile, and a ragged M past
+# the largest prefill.
+_EDGE_M = [1, 2, 7, 8, 9, 15, 16, 17, 63, 64, 65, 127, 128, 129, 255, 257, 300, 2304, 2311]
+# Window rows held bit for bit against the whole batch's: the edges above M =
+# 16, from row 5
+_WINDOW_ROWS = [slice(5, 5 + m) for m in _EDGE_M if m > 16]
 # the matmul tolerance of chip_smoke.py (MM_TOL): f32 sums in another order,
 # bf16 outputs rounded once
 _MM_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rtol=1e-2, atol=2e-2)}
@@ -451,9 +456,12 @@ _MM_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rtol=
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_int4_matmul_tile_edges(cuda, M, dtype):
     """A group that straddles the packed halves (K = 384, gs = 128) with
-    ragged N, ragged K (K/2 = 500) per-channel, and an aligned grouped shape
-    that splits K at small M."""
-    for K, N, gs in ((384, 200, 128), (1000, 130, None), (4096, 512, 128)):
+    ragged N, ragged K (K/2 = 500) per-channel, an aligned grouped shape
+    that splits K at small M, aligned ragged N and K (the wgmma window tile's
+    partial column block and last stage), and groups of 96 rows, whose
+    boundaries fall inside K splits and between stages."""
+    for K, N, gs in ((384, 200, 128), (1000, 130, None), (4096, 512, 128), (2000, 4112, None),
+                     (3072, 512, 96)):
         g = torch.Generator(device=cuda).manual_seed(M + K + N)
         t = quantize_int4(torch.randn(K, N, generator=g, device=cuda), group_size=gs)
         x = torch.randn(M, K, generator=g, device=cuda).to(dtype)
@@ -513,7 +521,7 @@ def test_w8a8_tile_edges(cuda, M, dtype):
 def test_two_streams_give_the_sequential_results(cuda, kernel):
     """Two calls at once on two streams (their split-K or split workspaces
     are the calls' own, their tile counters the streams' own) give the
-    results of two calls in sequence."""
+    results of two calls in sequence, the matmuls at decode and window M."""
     g = torch.Generator(device=cuda).manual_seed(11)
     K, N = 5120, 7168
     if kernel == "int4":
@@ -540,8 +548,8 @@ def test_two_streams_give_the_sequential_results(cuda, kernel):
         fn = lambda x: A.paged_window_attention(  # noqa: E731
             x, *pages, tables.view(4, 8), ctx, offs, group=5, sm_scale=D ** -0.5)
         xs = [torch.randn(4, n_kv, W * 5, D, generator=g, device=cuda) for W in (24, 64, 100)]
-    else:
-        xs = [torch.randn(M, K, generator=g, device=cuda) for M in (4, 8, 300)]
+    else:  # decode, a window whose K splits run in blocks of their own, one in turn
+        xs = [torch.randn(M, K, generator=g, device=cuda) for M in (4, 8, 64, 300)]
     want = [fn(x) for x in xs]
     torch.cuda.synchronize()
     streams = [torch.cuda.Stream() for _ in range(2)]
@@ -597,25 +605,30 @@ def test_split_counters_are_left_zero(cuda, kernel):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_int4_row_results_do_not_depend_on_m(cuda, gs, dtype):
     """A row's output is the same bit for bit whether it is computed in a
-    decode tile (8 or 16 tokens, K split across blocks) or a larger tile
-    (windows): both sum a row in one order, so decode and verify agree."""
+    decode tile (8 or 16 tokens, K split across blocks) or a window tile of
+    any M (splits in turn, or in blocks of their own at small M): all sum a
+    row in one order, so decode and verify agree. Rows also at the window
+    tiles' edges (M = 17 to 2311)."""
     g = torch.Generator(device=cuda).manual_seed(3)
     K, N = 5120, 7168
     t = quantize_int4(torch.randn(K, N, generator=g, device=cuda), group_size=gs)
-    x = torch.randn(300, K, generator=g, device=cuda).to(dtype)
+    x = torch.randn(2400, K, generator=g, device=cuda).to(dtype)
     assert MQ._int4_plan(1, N, K, gs or 0, 132)[1] > 1
     full = MQ.quantized_matmul(x, t.q, t.scale, bits=4)
-    for rows in (slice(0, 1), slice(5, 9), slice(3, 12), slice(100, 116), slice(17, 81)):
-        assert torch.equal(MQ.quantized_matmul(x[rows], t.q, t.scale, bits=4), full[rows])
+    rows = [slice(0, 1), slice(5, 9), slice(3, 12), slice(100, 116), slice(17, 81)]
+    for r in rows + _WINDOW_ROWS:
+        assert torch.equal(MQ.quantized_matmul(x[r], t.q, t.scale, bits=4), full[r]), r
 
 
 @pytest.mark.parametrize("M", _EDGE_M)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_int8_matmul_tile_edges(cuda, M, dtype):
     """Every tile edge of the INT8 kernel (decode tiles of 8 and 16 tokens,
-    64- and 128-row window tiles) with ragged N and K, and an aligned shape
-    whose K is split across blocks."""
-    for K, N in ((1000, 130), (515, 4099), (4096, 512)):
+    the wgmma window tile of 128 tokens, the mma.sync window tiles of 64 and
+    128 rows) with ragged N and K (element-wise staging), aligned ragged N
+    and K (the wgmma tile's partial column block and last stage), and an
+    aligned shape whose K is split across blocks."""
+    for K, N in ((1000, 130), (515, 4099), (4096, 512), (1000, 4112)):
         g = torch.Generator(device=cuda).manual_seed(M + K + N)
         t = quantize_int8(torch.randn(K, N, generator=g, device=cuda))
         x = torch.randn(M, K, generator=g, device=cuda).to(dtype)
@@ -638,20 +651,45 @@ def test_int8_matmul_unaligned_x_and_q(cuda, M, dtype):
         torch.testing.assert_close(out.float(), ref.float(), **_MM_TOL[dtype])
 
 
+@pytest.mark.parametrize("kernel", ["int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_window_rows_equal_decode_rows_at_tile_edges(cuda, kernel, dtype):
+    """At the tile-edge shapes (ragged N and K, aligned or not; INT4 groups
+    of 96 rows and a group that straddles the packed halves), a window of
+    2311 rows gives every row the bits of the decode tiles, 16 rows at a
+    time: the window tiles' sums are the decode tiles', so where the f32
+    sums stray from the plain version (the tensor cores' truncating adds),
+    decode strays alike."""
+    shapes = ({"int8": ((1000, 4112, None), (4096, 512, None), (1000, 130, None)),
+               "int4": ((2000, 4112, None), (3072, 512, 96), (384, 200, 128))})[kernel]
+    for K, N, gs in shapes:
+        g = torch.Generator(device=cuda).manual_seed(K + N)
+        w = torch.randn(K, N, generator=g, device=cuda)
+        t = quantize_int8(w) if kernel == "int8" else quantize_int4(w, group_size=gs)
+        bits = 8 if kernel == "int8" else 4
+        x = torch.randn(2311, K, generator=g, device=cuda).to(dtype)
+        window = MQ.quantized_matmul(x, t.q, t.scale, bits=bits)
+        decode = torch.cat([MQ.quantized_matmul(x[i:i + 16], t.q, t.scale, bits=bits)
+                            for i in range(0, x.shape[0], 16)])
+        assert torch.equal(window, decode), (K, N, gs)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_int8_row_results_do_not_depend_on_m(cuda, dtype):
     """A row's output is the same bit for bit whether it is computed in a
     decode tile (8 or 16 tokens, K split across blocks) or a window tile of
     any M: all sum a row in one order, so decode and verify agree. Rows are
-    taken at M = 1, 4, 9-16, 64, 300 and 600 (the kernel takes every M)."""
+    taken at M = 1, 4, 9-16, 64, 300 and 600, and at the window tiles' edges
+    (M = 17 to 2311; the kernel takes every M)."""
     g = torch.Generator(device=cuda).manual_seed(3)
     K, N = 5120, 7168
     t = quantize_int8(torch.randn(K, N, generator=g, device=cuda))
-    x = torch.randn(600, K, generator=g, device=cuda).to(dtype)
+    x = torch.randn(2400, K, generator=g, device=cuda).to(dtype)
     assert MQ._int8_plan(N, K, 132)[0] > 1
     full = MQ.quantized_matmul(x, t.q, t.scale)
-    rows = [slice(0, 1), slice(5, 9), slice(3, 12), slice(100, 116), slice(17, 81), slice(0, 300)]
-    rows += [slice(a, a + m) for a, m in ((20, 9), (40, 13))]
+    rows = [slice(0, 1), slice(5, 9), slice(3, 12), slice(100, 116), slice(17, 81), slice(0, 300),
+            slice(0, 600)]
+    rows += [slice(a, a + m) for a, m in ((20, 9), (40, 13))] + _WINDOW_ROWS
     for r in rows:
         assert torch.equal(MQ.quantized_matmul(x[r], t.q, t.scale), full[r]), r
 

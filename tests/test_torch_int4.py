@@ -232,8 +232,9 @@ def test_int4_three_term_product_matches_jax_pallas_interpret(M, group_size):
 def test_int4_plan_workspace_fits_every_split(M, N, K, gs):
     """The partial-sum workspace [splits, M, N] of the decode tiles holds one
     slab per split; the splits' packed rows (whole 32-row kernel stages, on
-    group boundaries) tile K/2 with none empty; the larger tiles loop over
-    the same splits and need no workspace."""
+    group boundaries) tile K/2 with none empty; the window tiles take the
+    same splits, in turn or (``_window_plan``) in blocks of their own with
+    the same workspace."""
     large, splits, r_per = tmm._int4_plan(M, N, K, gs, 132)
     Kh = K // 2
     assert large == int(M > 16)

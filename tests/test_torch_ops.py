@@ -138,6 +138,30 @@ class TestQuantizedMatmul:
         assert splits == 1 or blocks * (splits - 1) < per_sm * 132
 
 
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("M,N,K", [
+    (17, 4608, 3584), (64, 3584, 18944), (128, 7168, 5120), (129, 5120, 13824),
+    (192, 37888, 3584), (512, 4608, 3584), (2304, 55296, 5120), (2311, 4112, 1000),
+])
+def test_window_plan_covers_m_once_with_the_decode_split(bits, M, N, K):
+    """The wgmma window tiles (M > 16) cover M and N once in 128 x 128
+    tiles, take the K split of the decode tiles (``_int8_plan`` /
+    ``_int4_plan``, which depend on N and K only) unchanged, and run its
+    splits in blocks of their own only where the tiles leave SMs idle and
+    the partial sums fit their workspace."""
+    assert list(inspect.signature(tmm._window_plan).parameters) == ["M", "N", "splits", "n_sm"]
+    if bits == 8:
+        splits, _ = tmm._int8_plan(N, K, 132)
+    else:
+        large, splits, _ = tmm._int4_plan(M, N, K, 128, 132)
+        assert large == 1 and splits == tmm._int4_plan(1, N, K, 128, 132)[1]
+    m_tiles, n_tiles, split_blocks = tmm._window_plan(M, N, splits, 132)
+    assert (m_tiles - 1) * 128 < M <= m_tiles * 128
+    assert (n_tiles - 1) * 128 < N <= n_tiles * 128
+    assert split_blocks == (splits > 1 and m_tiles * n_tiles < 132
+                            and splits * M * N * 4 <= tmm._WINDOW_PARTIAL_BYTES)
+
+
 def _paged_inputs(rng, n_kv, n_pages, page, D):
     kq = rng.integers(-127, 128, (n_kv, n_pages, page, D)).astype(np.int8)
     ks = rng.uniform(0.001, 0.02, (n_kv, n_pages, 1, page)).astype(np.float32)
