@@ -22,13 +22,14 @@
 // operand (16 output columns by 16 k-rows a warp), x its B operand, so a
 // decode step pads its M rows to 8 (or 16), not to 16 (or 32).
 // * Decode tiles (M <= 16), mma.sync.m16n8k16 (B: 16 k-rows by 8 tokens):
-//   4 warps of 64 columns and 8 or 16 tokens, the K split across blocks,
-//   registers capped so that 3-4 blocks share an SM. Packed tiles of q (32
-//   packed rows x the block's columns) and the matching x tiles (32 columns
-//   of each half) arrive through a cp.async ring in shared memory, one
-//   __syncthreads a stage (two for f32 x, whose split is shared). Each
-//   thread's copy addresses are worked out once, not per stage: a decode
-//   stage's instructions, not its bytes, set its time.
+//   256 columns and 8 or 16 tokens a block, the K split across blocks, in
+//   one launch. bf16 x, aligned x and q with every stage half in one group
+//   take the TMA tile (int4_matmul_decode_kernel): a producer warp keeps a
+//   ring of stages filled by TMA, four consumer warps of 64 columns convert
+//   and multiply. The rest (f32 x, element-wise staging, GMODE 2) take the
+//   cp.async tile: 4 warps that copy a 3-stage ring and compute in turn, one
+//   __syncthreads a stage (two for f32 x, whose split is shared). Both run
+//   3-4 blocks an SM; scripts/torch_decode_ablation.py times their parts.
 // * Window tiles (M > 16), wgmma.mma_async.m64nNk16 (wgmma.cuh WgmmaTile):
 //   128 columns by 128 tokens a block for bf16 x (64 for f32 x, whose
 //   stages hold raw x and its planes), two consumer warpgroups of 64
@@ -78,14 +79,18 @@
 //   whose 32 rows hold a group boundary (a group that straddles the halves,
 //   a gs that is no multiple of 32) runs each 16-row k-step once per group
 //   with the other rows masked (GMODE 2).
-//   Ragged N and K are masked in the copies. Partial sums of a K split are
-//   scaled before they are written, so any split is exact; a second kernel
-//   sums the splits.
+//   Ragged N and K are masked in the copies (TMA reads zeros out of
+//   bounds). Partial sums of a K split are scaled before they are written,
+//   so any split is exact.
 // * One sum order per output at every M: K is split where the N / 128
 //   column blocks cannot fill the SMs, by N and K alone. Decode tiles run
-//   one split a block and a second kernel adds the splits' sums in order;
-//   window tiles run the same splits, each half's 32-row sums from zero
-//   folded in the same order, and add the splits' sums in the same order.
+//   one split a block; the last block of a tile to finish (a tile counter
+//   that this block returns to 0) adds the splits' sums in split order, in
+//   the same launch, from the stream's workspace: no memset, no second
+//   kernel, no allocation a call. Window tiles run the same splits, each
+//   half's 32-row sums from zero folded in the same order, and add the
+//   splits' sums in the same order (in turn, or in blocks of their own and a
+//   second kernel where the M x N tiles cannot fill the SMs).
 //   wgmma and mma.sync sum 16 products into f32 in the same order (measured
 //   bit for bit, scripts/torch_mma_order_probe.py), and every output is a
 //   dot product of its own within an MMA, so where an output sits in a tile
@@ -154,8 +159,8 @@ template <typename T, typename C, int GMODE>
 __global__ void __launch_bounds__(C::kThreads, C::kMinBlocks)
 int4_matmul_mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
                        const float* __restrict__ scale, T* __restrict__ out,
-                       float* __restrict__ partial, int M, int N, int K, int gs,
-                       int r_per_split, int vec) {
+                       float* __restrict__ partial, int* __restrict__ counters, int M, int N,
+                       int K, int gs, int r_per_split, int vec) {
   constexpr bool GROUPED = GMODE != 0;
   extern __shared__ __align__(16) uint8_t smem[];
   constexpr int NT = C::NT, MW = C::MW, NW = C::kWords, S = C::kStages;
@@ -172,10 +177,10 @@ int4_matmul_mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
   const int wm = warp / C::WN, wn = warp % C::WN;
   const int m0 = blockIdx.z * C::BM, nb = blockIdx.x * C::BN;
   const int Kh = K / 2;
-  // Decode tiles: one K split a block (grid.y), partial sums to a workspace.
-  // Window tiles: every split in turn, each split's sum added to `total` as
-  // the split-K reduction adds the partials, so that a row's result does not
-  // depend on the tile (or M) it was computed in.
+  // Decode tiles: one K split a block (grid.y), partial sums to a workspace
+  // that the tile's last block adds up. Window tiles: every split in turn,
+  // each split's sum added to `total` in the same order, so that a row's
+  // result does not depend on the tile (or M) it was computed in.
   const int r_begin = C::kAllSplits ? 0 : blockIdx.y * r_per_split;
   const int r_end = C::kAllSplits ? Kh : min(Kh, r_begin + r_per_split);
   const int n_st = (r_end - r_begin + kBKP - 1) / kBKP;
@@ -381,6 +386,31 @@ int4_matmul_mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
   }
   asd::cp_async_wait<0>();
 
+  if constexpr (!C::kAllSplits) {
+    if (partial != nullptr) {  // a decode tile of a K split: its partial sums
+#pragma unroll
+      for (int i = 0; i < MW; ++i)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int f = 0; f < 4; ++f) {
+            const int gm = m0 + (wm * NT + n) * 8 + 2 * tig + f % 2;
+            const int gn = col_of(i, f / 2);
+            if (gm < M && gn < N) partial[((size_t)blockIdx.y * M + gm) * N + gn] = acc[i][n][f];
+          }
+      __threadfence();  // this block's sums are visible before its tile count rises
+      __shared__ int s_last;
+      __syncthreads();
+      if (tid == 0) s_last = asd::last_of_tile(counters + blockIdx.x, gridDim.y);
+      __syncthreads();
+      if (!s_last) return;
+      __threadfence();
+      asd::reduce_splits_apart<T, C::kThreads>(partial, GROUPED ? nullptr : scale, out, M, N,
+                                               m0, min(C::BM, M - m0), nb, C::BN, gridDim.y,
+                                               tid);
+      return;
+    }
+  }
 #pragma unroll
   for (int i = 0; i < MW; ++i)
 #pragma unroll
@@ -392,12 +422,228 @@ int4_matmul_mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
         if (gm >= M || gn >= N) continue;
         const float v =
             C::kAllSplits ? total[((i * NT + n) * 4 + f) * C::kThreads + tid] : acc[i][n][f];
-        if (partial != nullptr) {
-          partial[((size_t)blockIdx.y * M + gm) * N + gn] = v;
-        } else {
-          out[(size_t)gm * N + gn] = asd::from_f<T>(GROUPED ? v : v * scale[gn]);
-        }
+        out[(size_t)gm * N + gn] = asd::from_f<T>(GROUPED ? v : v * scale[gn]);
       }
+}
+
+// Decode tiles (M <= 16) of bf16 x, 16-byte aligned x and q, every 32-row
+// stage half in one group (GMODE 0, 1): 256 output columns and 8 or 16
+// tokens a block, one K split a block (grid.y), the grid of the cp.async
+// tile (about four blocks an SM for the plan's splits, one wave). One
+// producer warp keeps a ring of stages filled by TMA, each two [32][128]
+// boxes of packed q (128-byte swizzled) and a [BM][32] box of x of each half
+// (64-byte swizzled), completing on the stage's `full` barrier: 24 KB of q in
+// flight a block, where the cp.async tile kept 16. Four consumer warps of 64
+// columns (four m16 weight tiles each) read their 8 bytes of each k-row,
+// convert them (a_frag), read x's B fragments from the stage and issue
+// mma.sync in the order of the mma.sync tile: per stage the low half's 32
+// rows, then the high half's, each summed from zero and folded with
+// round-to-nearest f32 (times its group's scale); then the warp releases the
+// stage on its `empty` barrier. A block of a K split writes its sums to the
+// stream's workspace; the tile's last block (its tile counter, which it
+// returns to 0) adds the splits in split order and writes the output. f32 x
+// takes the cp.async tile: split into its three bf16 terms, by the four
+// warps together into planes or by each thread in registers, this tile
+// measured slower than that one (PERF.md).
+constexpr int kInt4DecodeStages = 3;     // ring depth (measured at least as fast as 2, 4, 5, 6)
+constexpr int kInt4DecodeMinBlocks = 4;  // blocks an SM of the 8-token tile (16 tokens: 3)
+
+template <int NT_>
+struct DecodeTma {
+  static constexpr int NT = NT_, MW = 4, kWarps = 4, kThreads = 32 * (kWarps + 1);
+  static constexpr int BN = 256, BM = 8 * NT;
+  static constexpr int kStages = kInt4DecodeStages;
+  static constexpr int kMinBlocks = kInt4DecodeMinBlocks - (NT - 1);
+  static constexpr int kBoxBytes = kBKP * 128;          // a [32][128] box of q
+  static constexpr int kQBytes = 2 * kBoxBytes;
+  static constexpr int kXBytes = BM * kBKP * 2;         // a [BM][32] box of bf16 x
+  static constexpr int kXSlot = kXBytes < 1024 ? 1024 : kXBytes;  // the swizzles' period
+  static constexpr int kStageBytes = kQBytes + 2 * kXSlot;
+  static constexpr int kLoadBytes = kQBytes + 2 * kXBytes;
+  // + 1024: the base is rounded up to the swizzles' 1024-byte period
+  static constexpr int kSmem = 1024 + kStages * kStageBytes + 2 * kStages * 8;
+  static_assert(kStageBytes % 1024 == 0, "swizzle period");
+};
+
+// element j of a float4 (j known at compile time)
+__device__ __forceinline__ float f4_at(const float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+template <int NT, int GMODE>
+__global__ void __launch_bounds__(DecodeTma<NT>::kThreads, DecodeTma<NT>::kMinBlocks)
+int4_matmul_decode_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tx0,
+                          const __grid_constant__ CUtensorMap tx1,
+                          const float* __restrict__ scale, __nv_bfloat16* __restrict__ out,
+                          float* __restrict__ partial, int* __restrict__ counters, int M, int N,
+                          int K, int gs, int r_per_split) {
+  using T = __nv_bfloat16;
+  using C = DecodeTma<NT>;
+  static_assert(GMODE != 2, "a group boundary inside a stage half takes the mma.sync tile");
+  constexpr bool GROUPED = GMODE != 0;
+  constexpr int S = C::kStages, MW = C::MW;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = asd::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S * C::kStageBytes);
+  uint64_t* empty = full + S;
+  __shared__ int s_last;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int nb = blockIdx.x * C::BN;
+  const int Kh = K / 2;
+  const int r_begin = blockIdx.y * r_per_split;
+  const int r_end = min(Kh, r_begin + r_per_split);
+  const int n_st = (r_end - r_begin + kBKP - 1) / kBKP;
+  if (tid == 0) {
+    for (int i = 0; i < S; ++i) {
+      asd::mbar_init(&full[i], 1);
+      asd::mbar_init(&empty[i], C::kWarps);
+    }
+    asd::mbar_init_fence();
+  } else if (tid == 32 * C::kWarps) {  // the descriptors' fetch, ahead of the first loads
+    asd::prefetch_tmap(&tq);
+    asd::prefetch_tmap(&tx0);
+    asd::prefetch_tmap(&tx1);
+  }
+  __syncthreads();
+
+  if (warp == C::kWarps) {  // the producer warp
+    if (lane == 0) {
+      for (int it = 0; it < n_st; ++it) {
+        const int slot = it % S;
+        if (it >= S) asd::mbar_wait(&empty[slot], ((it / S) & 1) ^ 1);
+        uint8_t* st = smem + slot * C::kStageBytes;
+        const int r0 = r_begin + it * kBKP;
+        asd::mbar_expect_tx(&full[slot], C::kLoadBytes);
+        asd::tma_load_2d(st, &tq, nb, r0, &full[slot]);
+        asd::tma_load_2d(st + C::kBoxBytes, &tq, nb + 128, r0, &full[slot]);
+        asd::tma_load_2d(st + C::kQBytes, &tx0, r0, 0, &full[slot]);
+        asd::tma_load_2d(st + C::kQBytes + C::kXSlot, &tx1, r0, 0, &full[slot]);
+      }
+    }
+    return;
+  }
+  constexpr int kConsumers = 32 * C::kWarps;
+
+  const int g = lane / 4, tig = lane % 4;
+  // the thread's 8 columns: in box warp / 2, bytes (warp % 2) * 64 + 8g of a row
+  const int qoff = (warp / 2) * C::kBoxBytes, wcol = (warp % 2) * 64 + 8 * g;
+  const int col0 = nb + warp * 64 + 8 * g;  // tile i's rows g, g + 8: columns col0 + 2i, + 1
+  const int gs_shift = (gs > 0 && (gs & (gs - 1)) == 0) ? __ffs(gs) - 1 : -1;
+  auto group_of = [&](int row) { return gs_shift >= 0 ? row >> gs_shift : row / gs; };
+  float acc[MW][NT][4], t[MW][NT][4];
+#pragma unroll
+  for (int i = 0; i < MW; ++i)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) acc[i][n][f] = t[i][n][f] = 0.f;
+
+  for (int it = 0; it < n_st; ++it) {
+    const int slot = it % S;
+    asd::mbar_wait(&full[slot], (it / S) & 1);
+    const uint8_t* st = smem + slot * C::kStageBytes;
+    const int r0 = r_begin + it * kBKP;
+    const int n_rows = min(kBKP, r_end - r0);  // rows past r_end are zero weights
+    // the thread's 8 bytes of k-rows 2t, 2t + 1, 2t + 8, 2t + 9 of each k-step
+    uint32_t w[2][4][2];
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks) {
+      const int r = ks * 16 + 2 * tig;
+      const int rows[4] = {r, r + 1, r + 8, r + 9};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint2 v = *reinterpret_cast<const uint2*>(
+            st + qoff + asd::swizzle<128>(rows[j] * 128 + wcol));
+        w[ks][j][0] = v.x;
+        w[ks][j][1] = v.y;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {  // the low nibbles' rows, then the high nibbles'
+      if (h == 1) {
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) w[ks][j][0] >>= 4, w[ks][j][1] >>= 4;
+      }
+      // the half's group scales at the thread's 8 columns (from L1 after the
+      // group's first stage; loaded before the MMAs, used by the fold)
+      float4 sc[2];
+      if constexpr (GROUPED) {
+        const float* srow = scale + (size_t)group_of(h * Kh + r0) * N + col0;
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          sc[c] = col0 + 4 * c < N ? __ldg(reinterpret_cast<const float4*>(srow + 4 * c))
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        if (ks * 16 >= n_rows) break;
+        uint32_t a[MW][4];
+#pragma unroll
+        for (int i = 0; i < MW; ++i) a_frag<2>(w[ks], i, 0xFFFFFFFFu, 0xFFFFFFFFu, a[i]);
+        // B fragments: token 8n + g, k-rows 2t, 2t + 1 (b0) and 2t + 8, 2t + 9 (b1)
+        uint32_t b[NT][2];
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int hk = 0; hk < 2; ++hk)
+            b[n][hk] = *reinterpret_cast<const uint32_t*>(
+                st + C::kQBytes + h * C::kXSlot +
+                asd::swizzle<64>((8 * n + g) * 64 + (ks * 16 + 2 * tig + 8 * hk) * 2));
+#pragma unroll
+        for (int i = 0; i < MW; ++i)
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            if (ks == 0)
+              asd::mma_bf16_zero(t[i][n], a[i], b[n][0], b[n][1]);
+            else
+              asd::mma_bf16(t[i][n], a[i], b[n][0], b[n][1], t[i][n]);
+          }
+      }
+      // fold the half's 32-row sums: acc += t (times the group's scale)
+#pragma unroll
+      for (int i = 0; i < MW; ++i)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int f = 0; f < 4; ++f) {
+            acc[i][n][f] = GROUPED ? fmaf(t[i][n][f], f4_at(sc[i / 2], 2 * (i % 2) + f / 2),
+                                          acc[i][n][f])
+                                   : acc[i][n][f] + t[i][n][f];
+            t[i][n][f] = 0.f;
+          }
+    }
+    __syncwarp();
+    if (lane == 0) asd::mbar_arrive(&empty[slot]);
+  }
+
+  const bool split = gridDim.y > 1;
+#pragma unroll
+  for (int i = 0; i < MW; ++i)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const int gm = 8 * n + 2 * tig + f % 2, gn = col0 + 2 * i + f / 2;
+        if (gm >= M || gn >= N) continue;
+        const float v = acc[i][n][f];
+        if (split)
+          partial[((size_t)blockIdx.y * M + gm) * N + gn] = v;
+        else
+          out[(size_t)gm * N + gn] = asd::from_f<T>(GROUPED ? v : v * scale[gn]);
+      }
+  if (!split) return;
+  __threadfence();  // this block's sums are visible before its tile count rises
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");  // the consumers only
+  if (tid == 0) s_last = asd::last_of_tile(counters + blockIdx.x, gridDim.y);
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+  if (!s_last) return;
+  __threadfence();
+  asd::reduce_splits_apart<T, kConsumers>(partial, GROUPED ? nullptr : scale, out, M, N, 0, M,
+                                          nb, C::BN, gridDim.y, tid);
 }
 
 // Window tiles on the warpgroup MMA (wgmma.cuh WgmmaTile), 16-byte aligned
@@ -574,8 +820,9 @@ int4_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 template <typename T, typename C, int GMODE>
-int launch(const void* x, const void* q, const void* scale, void* out, void* partial, int M,
-           int N, int K, int gs, int splits, int r_per_split, int vec, cudaStream_t stream) {
+int launch(const void* x, const void* q, const void* scale, void* out, void* partial,
+           void* counters, int M, int N, int K, int gs, int splits, int r_per_split, int vec,
+           cudaStream_t stream) {
   static size_t smem_done = 0;
   cudaError_t err = asd::ensure_smem(int4_matmul_mma_kernel<T, C, GMODE>, C::kSmem, &smem_done);
   if (err != cudaSuccess) return (int)err;
@@ -584,7 +831,35 @@ int launch(const void* x, const void* q, const void* scale, void* out, void* par
   int4_matmul_mma_kernel<T, C, GMODE><<<grid, C::kThreads, C::kSmem, stream>>>(
       static_cast<const T*>(x), static_cast<const uint8_t*>(q),
       static_cast<const float*>(scale), static_cast<T*>(out),
-      split_blocks ? static_cast<float*>(partial) : nullptr, M, N, K, gs, r_per_split, vec);
+      split_blocks ? static_cast<float*>(partial) : nullptr, static_cast<int*>(counters), M, N,
+      K, gs, r_per_split, vec);
+  return (int)cudaGetLastError();
+}
+
+// The TMA decode tile (DecodeTma, bf16 x): q in boxes of 32 packed rows by
+// 128 columns (two a stage), x's halves in boxes of BM tokens by 32 columns.
+template <int NT, int GMODE>
+int launch_decode(const void* x, const void* q, const void* scale, void* out, void* partial,
+                  void* counters, int M, int N, int K, int gs, int splits, int r_per_split,
+                  cudaStream_t stream) {
+  using C = DecodeTma<NT>;
+  CUtensorMap tq, tx[2];
+  const int Kh = K / 2;
+  if (!asd::encode_tmap_2d(&tq, CU_TENSOR_MAP_DATA_TYPE_UINT8, q, N, Kh, N, 128, kBKP,
+                           CU_TENSOR_MAP_SWIZZLE_128B))
+    return (int)cudaErrorInvalidValue;
+  for (int h = 0; h < 2; ++h)
+    if (!asd::encode_tmap_2d(&tx[h], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                             static_cast<const __nv_bfloat16*>(x) + (size_t)h * Kh, Kh, M,
+                             (uint64_t)K * 2, kBKP, C::BM, CU_TENSOR_MAP_SWIZZLE_64B))
+      return (int)cudaErrorInvalidValue;
+  static size_t smem_done = 0;
+  cudaError_t err = asd::ensure_smem(int4_matmul_decode_kernel<NT, GMODE>, C::kSmem, &smem_done);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((N + C::BN - 1) / C::BN, splits);
+  int4_matmul_decode_kernel<NT, GMODE><<<grid, C::kThreads, C::kSmem, stream>>>(
+      tq, tx[0], tx[1], static_cast<const float*>(scale), static_cast<__nv_bfloat16*>(out),
+      static_cast<float*>(partial), static_cast<int*>(counters), M, N, K, gs, r_per_split);
   return (int)cudaGetLastError();
 }
 
@@ -614,35 +889,44 @@ int launch_wgmma(const void* x, const void* q, const void* scale, void* out, voi
 }
 
 template <typename T, int GMODE>
-int run(const void* x, const void* q, const void* scale, void* out, void* partial, int M,
-        int N, int K, int gs, int splits, int r_per_split, int vec, int large,
-        cudaStream_t stream) {
-  int rc = 0;
+int run(const void* x, const void* q, const void* scale, void* out, void* partial,
+        void* counters, int M, int N, int K, int gs, int splits, int r_per_split, int vec,
+        int large, cudaStream_t stream) {
+  if (!large) {  // decode tiles: one launch, the splits added by the tile's last block
+    void* ws = splits > 1 ? partial : nullptr;
+    if (vec && GMODE != 2 && sizeof(T) == 2) {
+      if constexpr (GMODE != 2) {
+        return M <= 8 ? launch_decode<1, GMODE>(x, q, scale, out, ws, counters, M, N, K, gs,
+                                                splits, r_per_split, stream)
+                      : launch_decode<2, GMODE>(x, q, scale, out, ws, counters, M, N, K, gs,
+                                                splits, r_per_split, stream);
+      }
+    }
+    // f32 x, element-wise staging, or a group boundary inside a stage half
+    return M <= 8 ? launch<T, DecodeTile<T, 1>, GMODE>(x, q, scale, out, ws, counters, M, N, K,
+                                                       gs, splits, r_per_split, vec, stream)
+                  : launch<T, DecodeTile<T, 2>, GMODE>(x, q, scale, out, ws, counters, M, N, K,
+                                                       gs, splits, r_per_split, vec, stream);
+  }
   // window tiles take wgmma where the copies are 16-byte ones and every stage
   // half lies in one group; with a workspace their K splits run in blocks
-  // of their own, as the decode tiles' do
-  const bool wgmma = large && vec && GMODE != 2;
-  const bool split_blocks = splits > 1 && (large ? wgmma && partial != nullptr : true);
-  if (wgmma) {
+  // of their own, added by a second kernel in the decode tiles' order
+  if (vec && GMODE != 2) {
     if constexpr (GMODE != 2) {
-      rc = split_blocks ? launch_wgmma<T, GMODE, true>(x, q, scale, out, partial, M, N, K, gs,
-                                                       splits, r_per_split, stream)
-                        : launch_wgmma<T, GMODE, false>(x, q, scale, out, nullptr, M, N, K, gs,
-                                                        splits, r_per_split, stream);
+      if (splits > 1 && partial != nullptr) {
+        const int rc = launch_wgmma<T, GMODE, true>(x, q, scale, out, partial, M, N, K, gs,
+                                                    splits, r_per_split, stream);
+        if (rc != 0) return rc;
+        // the per-channel scale after the sum; grouped partial sums are scaled already
+        return asd::add_splits<T>(partial, GMODE ? nullptr : scale, out, M, N, splits, stream);
+      }
+      return launch_wgmma<T, GMODE, false>(x, q, scale, out, nullptr, M, N, K, gs, splits,
+                                           r_per_split, stream);
     }
-  } else if (large) {  // element-wise staging, or a group boundary inside a stage half
-    rc = launch<T, WindowTile<T>, GMODE>(x, q, scale, out, nullptr, M, N, K, gs, splits,
-                                         r_per_split, vec, stream);
-  } else if (M <= 8) {
-    rc = launch<T, DecodeTile<T, 1>, GMODE>(x, q, scale, out, partial, M, N, K, gs, splits,
-                                            r_per_split, vec, stream);
-  } else {
-    rc = launch<T, DecodeTile<T, 2>, GMODE>(x, q, scale, out, partial, M, N, K, gs, splits,
-                                            r_per_split, vec, stream);
   }
-  if (rc != 0 || !split_blocks) return rc;
-  // the per-channel scale after the sum; grouped partial sums are scaled already
-  return asd::add_splits<T>(partial, GMODE ? nullptr : scale, out, M, N, splits, stream);
+  // element-wise staging, or a group boundary inside a stage half
+  return launch<T, WindowTile<T>, GMODE>(x, q, scale, out, nullptr, nullptr, M, N, K, gs,
+                                         splits, r_per_split, vec, stream);
 }
 
 }  // namespace
@@ -651,26 +935,31 @@ int run(const void* x, const void* q, const void* scale, void* out, void* partia
 // scale f32: [N] when gs == 0 (per-channel), [K/gs, N] when gs > 0 (grouped);
 // out [M, N] in x's type. r_per_split packed rows per K split (a multiple
 // of 32 when splits > 1). large == 0: decode tiles (M <= 16), one split a
-// block, with partial [splits, M, N] f32 when splits > 1; large != 0:
-// window tiles, with vec and every stage half in one group the wgmma tiles,
-// which run the splits in blocks of their own where partial is given, else
-// add them up in turn, otherwise the mma.sync window tile (64 rows for bf16,
-// 128 for f32), in turn. vec != 0: N % 16 == 0, K/2 a multiple of 16 bytes
-// of x, and x and q 16-byte aligned (16-byte asynchronous copies and TMA);
-// else element-wise staging.
+// block, in one launch: with splits > 1, partial [splits, M, N] f32 and
+// counters [ceil(N / 128)] i32 (zero on entry; every launch leaves them
+// zero, so one buffer serves every launch on a stream), and the tile's last
+// block adds the splits; with vec and every stage half in one group the TMA
+// tile, else the mma.sync one. large != 0: window tiles, with vec and every
+// stage half in one group the wgmma tiles, which run the splits in blocks of
+// their own where partial is given (a second kernel adds them), else add
+// them up in turn; otherwise the mma.sync window tile (64 rows for bf16, 128
+// for f32), in turn. vec != 0: N % 16 == 0, K/2 a multiple of 16 bytes of
+// x, and x and q 16-byte aligned (16-byte asynchronous copies and TMA); else
+// element-wise staging.
 extern "C" int asd_int4_matmul(const void* x, const void* q, const void* scale, void* out,
-                               void* partial, int M, int N, int K, int gs, int splits,
-                               int r_per_split, int x_is_bf16, int vec, int large,
+                               void* partial, void* counters, int M, int N, int K, int gs,
+                               int splits, int r_per_split, int x_is_bf16, int vec, int large,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0 || K <= 0 || (K & 1) || gs < 0 || splits < 1 || r_per_split <= 0 ||
-      (splits > 1 && (r_per_split % kBKP) != 0) || (!large && M > 16))
+      (splits > 1 && (r_per_split % kBKP) != 0) || (!large && M > 16) ||
+      (!large && splits > 1 && (partial == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
   // every 32-row half of a stage lies in one group where gs and K/2 are
   // multiples of 32 (stages start at multiples of 32)
   const int gmode = gs == 0 ? 0 : (gs % kBKP == 0 && (K / 2) % kBKP == 0) ? 1 : 2;
 #define ASD_RUN(T, G) \
-  run<T, G>(x, q, scale, out, partial, M, N, K, gs, splits, r_per_split, vec, large, s)
+  run<T, G>(x, q, scale, out, partial, counters, M, N, K, gs, splits, r_per_split, vec, large, s)
   if (x_is_bf16) {
     return gmode == 0   ? ASD_RUN(__nv_bfloat16, 0)
            : gmode == 1 ? ASD_RUN(__nv_bfloat16, 1)

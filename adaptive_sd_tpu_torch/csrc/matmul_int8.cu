@@ -266,34 +266,13 @@ int8_matmul_mma_kernel(const T* __restrict__ x, const uint8_t* __restrict__ q,
       __threadfence();  // this block's sums are visible before its tile count rises
       __shared__ int s_last;
       __syncthreads();
-      if (tid == 0) {
-        // the last block returns its tile's counter to 0 for the next launch
-        int* c = counters + blockIdx.z * gridDim.x + blockIdx.x;
-        s_last = atomicAdd(c, 1) == gridDim.y - 1;
-        if (s_last) *c = 0;
-      }
+      if (tid == 0)
+        s_last = asd::last_of_tile(counters + blockIdx.z * gridDim.x + blockIdx.x, gridDim.y);
       __syncthreads();
       if (!s_last) return;
       __threadfence();
-      const int splits = gridDim.y;
-      const size_t stride = (size_t)M * N;
-      const int rows = min(C::BM, M - m0);
-      for (int o = tid; o < rows * C::BN; o += C::kThreads) {
-        const int gm = m0 + o / C::BN, gn = nb + o % C::BN;
-        if (gn >= N) continue;
-        const float* p = partial + (size_t)gm * N + gn;
-        float v = 0.f;
-        int z = 0;
-        for (; z + 8 <= splits; z += 8) {
-          float pv[8];
-#pragma unroll
-          for (int u = 0; u < 8; ++u) pv[u] = __ldcg(p + (z + u) * stride);
-#pragma unroll
-          for (int u = 0; u < 8; ++u) v = __fadd_rn(v, pv[u]);
-        }
-        for (; z < splits; ++z) v = __fadd_rn(v, __ldcg(p + z * stride));
-        out[(size_t)gm * N + gn] = asd::from_f<T>(__fmul_rn(v, scale[gn]));
-      }
+      asd::reduce_splits<T, C::kThreads>(partial, scale, out, M, N, m0, min(C::BM, M - m0), nb,
+                                         C::BN, gridDim.y, tid);
       return;
     }
   }

@@ -158,6 +158,10 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
       "r"(parity)
       : "memory");
 }
+// Fetch a tensor map's descriptor ahead of its first TMA load.
+__device__ __forceinline__ void prefetch_tmap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
 // The box of a 2-D tensor map at element (c0 inner, c1 outer) -> shared
 // memory, completing `bytes` of `bar`'s phase; out of bounds reads as zeros.
 __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int c0, int c1,

@@ -29,7 +29,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # kernel name -> (source, C symbol, argtypes)
 KERNELS = {
     "int8_matmul": ("matmul_int8.cu", "asd_int8_matmul", [_P] * 6 + [_I] * 7 + [_P]),
-    "int4_matmul": ("matmul_int4.cu", "asd_int4_matmul", [_P] * 5 + [_I] * 9 + [_P]),
+    "int4_matmul": ("matmul_int4.cu", "asd_int4_matmul", [_P] * 6 + [_I] * 9 + [_P]),
     "w8a8_matmul": ("matmul_w8a8.cu", "asd_w8a8_matmul", [_P] * 8 + [_I] * 9 + [_P]),
     "paged_decode": ("paged_decode.cu", "asd_paged_decode", [_P] * 10 + [_I] * 7 + [_F, _I, _P]),
     "paged_window": ("paged_window.cu", "asd_paged_window", [_P] * 11 + [_I] * 10 + [_F, _I, _P]),
@@ -207,8 +207,9 @@ _tile_counters: dict = {}
 def tile_counters(t, stream: int, n: int):
     """A zeroed int32 buffer of at least ``n`` tile counters for kernels that
     ``stream`` (``stream_of(t)``) runs on ``t``'s device. The split kernels
-    (INT8 matmul, paged decode, paged window) find a tile's last block with a counter
-    and that block returns it to 0, so every launch leaves the buffer zero:
+    (INT8 and INT4 matmul decode tiles, paged decode, paged window) find a
+    tile's last block with a counter and that block returns it to 0, so
+    every launch leaves the buffer zero:
     it is zeroed once, and each stream has its own, so no memset runs per
     call and concurrent streams never share a counter. A stream that is
     capturing a CUDA graph must have its buffer already (the graph's
@@ -224,4 +225,31 @@ def tile_counters(t, stream: int, n: int):
                                "warm the graph up on its capture stream first")
         buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=t.device)
         _tile_counters[key] = buf
+    return buf
+
+
+_split_workspaces: dict = {}
+_retired_workspaces: list = []
+
+
+def split_workspace(t, stream: int, n: int):
+    """An f32 buffer of at least ``n`` elements for the split-K partial sums
+    of the decode tiles that ``stream`` runs on ``t``'s device (the INT4
+    matmul's): kernels on one stream run in turn, so one buffer serves every
+    launch there and no call allocates its own. A CUDA graph keeps the
+    address it was captured with, so a buffer that is outgrown is kept, not
+    freed; as with :func:`tile_counters`, a capture must find it made (the
+    graph's warm-up on its stream makes it)."""
+    import torch
+
+    key = (t.device.index, stream)
+    buf = _split_workspaces.get(key)
+    if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("split workspace first needed inside a CUDA graph capture: "
+                               "warm the graph up on its capture stream first")
+        if buf is not None:
+            _retired_workspaces.append(buf)
+        buf = torch.empty(max(n, 1 << 18), dtype=torch.float32, device=t.device)
+        _split_workspaces[key] = buf
     return buf

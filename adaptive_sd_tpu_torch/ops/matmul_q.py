@@ -44,6 +44,7 @@ _BN = 128           # the INT4 plan's column unit
 
 
 _INT4_SMALL_M = 16  # M up to which INT4 takes decode tiles (8 or 16 tokens) with a K split
+_INT4_DECODE_BN = 256  # output columns of a decode tile (csrc/matmul_int4.cu, both tiles)
 _INT4_RTILE = 128   # unit of a K split in packed rows (whole 32-row stages of the kernel)
 _INT4_GROUP_STAGE = 32  # rows of a stage half: the wgmma window tile takes groups of multiples
 
@@ -183,9 +184,10 @@ def _int4_plan(M: int, N: int, K: int, gs: int, n_sm: int) -> tuple[int, int, in
     split a multiple of 128 packed rows (whole kernel stages) and of the group
     size, so that a split boundary falls on a group boundary. The split
     depends on N and K only, not on M: ``large`` 0 (decode tiles, M <= 16)
-    runs one split a block and sums the splits in a second kernel; ``large``
-    1 (64- or 128-row tiles) runs them in turn in one block and sums them in
-    the same order, so both give a row the same result."""
+    runs one split a block and the tile's last block adds the splits in
+    order; ``large`` 1 (64- or 128-row tiles) runs them in turn in one block,
+    or in blocks of their own, and adds them in the same order, so both give
+    a row the same result."""
     Kh = K // 2
     blocks = math.ceil(N / _BN)
     unit = math.lcm(_INT4_RTILE, gs) if gs else _INT4_RTILE
@@ -194,10 +196,25 @@ def _int4_plan(M: int, N: int, K: int, gs: int, n_sm: int) -> tuple[int, int, in
     return int(M > _INT4_SMALL_M), math.ceil(Kh / r_per), r_per
 
 
+def _int4_decode_buffers(M: int, N: int, K: int, gs: int, n_sm: int) -> tuple[int, int]:
+    """(workspace f32 elements, tile counters) a decode call (M <= 16) of the
+    INT4 kernel takes from its stream: one [M, N] slab of partial sums a K
+    split and one counter a column tile of the decode tiles, none where K is
+    not split."""
+    _, splits, _ = _int4_plan(M, N, K, gs, n_sm)
+    if splits == 1:
+        return 0, 0
+    return splits * M * N, math.ceil(N / _INT4_DECODE_BN)
+
+
 def int4_matmul_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """Launch the Hopper INT4 kernel: x [M, K] bf16/f32 CUDA, q [K/2, N]
     split-half packed int8, scale f32 [N] (per-channel) or [K/gs, N]
-    (grouped) -> [M, N] in x.dtype."""
+    (grouped) -> [M, N] in x.dtype. Decode tiles (M <= 16) are one launch
+    whose K splits sum through the stream's workspace and tile counters
+    (:func:`_kernels.split_workspace`, :func:`_kernels.tile_counters`);
+    window tiles whose splits run in blocks of their own sum them through a
+    workspace allocated here for this call."""
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"int4 matmul kernel takes bf16/f32 x, got {x.dtype}")
     if q.dtype != torch.int8 or scale.dtype != torch.float32:
@@ -222,22 +239,26 @@ def int4_matmul_cuda(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> t
         return out
     n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
     large, splits, r_per = _int4_plan(M, N, K, gs, n_sm)
-    # 16-byte copies of q rows and of x rows' halves
+    # 16-byte copies (TMA) of q rows and of x rows' halves, 16-byte scale loads
     vec = int(N % 16 == 0 and q.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0
-              and (Kh * x.element_size()) % 16 == 0)
-    if not large:
-        split_blocks = splits > 1
+              and scale.data_ptr() % 16 == 0 and (Kh * x.element_size()) % 16 == 0)
+    stream = _kernels.stream_of(x)
+    partial = counters = None
+    if not large:  # one launch: the tile's last block adds the splits
+        n_ws, n_counters = _int4_decode_buffers(M, N, K, gs, n_sm)
+        if n_ws:
+            partial = _kernels.split_workspace(x, stream, n_ws)
+            counters = _kernels.tile_counters(x, stream, n_counters)
     else:  # wgmma window tiles: 16-byte copies, every stage half in one group
         wgmma = vec and (gs == 0 or (gs % _INT4_GROUP_STAGE == 0
                                      and Kh % _INT4_GROUP_STAGE == 0))
-        split_blocks = wgmma and _window_plan(M, N, splits, n_sm)[2]
-    partial = (torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
-               if split_blocks else None)
+        if wgmma and _window_plan(M, N, splits, n_sm)[2]:
+            partial = torch.empty((splits, M, N), dtype=torch.float32, device=x.device)
     rc = _kernels.function("int4_matmul")(
         x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
         partial.data_ptr() if partial is not None else None,
-        M, N, K, gs, splits, r_per, int(x.dtype == torch.bfloat16), vec, large,
-        _kernels.stream_of(x),
+        counters.data_ptr() if counters is not None else None,
+        M, N, K, gs, splits, r_per, int(x.dtype == torch.bfloat16), vec, large, stream,
     )
     _kernels.check(rc, "int4 matmul")
     (int4g_matmul_counter if gs else int4_matmul_counter).launched(M, K, N, gs, x.dtype)

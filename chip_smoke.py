@@ -393,6 +393,9 @@ INT8_M_WINDOWS = (32, 64, 128, 192, 512, 576, 2304)
 # Grouped INT4 window rows besides the pipeline's (M_WINDOWS, M_PREFILL): one
 # and two wgmma window tiles of tokens
 INT4_M_EXTRA_WINDOWS = (64, 128)
+# Grouped INT4 decode rows: the pipeline's M_DECODES, and the edges of the
+# decode tile's 8 and 16 tokens (the scheduler's 8 lanes, a verify of 16)
+INT4_M_DECODES = (1, 4, 8, 16)
 # The routing phase: prompts of the frozen suites in data/ per suite (the
 # predictor's training drafts), the tiers' new tokens a draft and a request
 # stage, synthetic rows
@@ -749,8 +752,11 @@ def phase_kernels(dev, rates, timer) -> dict:
         # largest at the batch's window
         for model in DEFAULT_CASCADE[1:3]:
             shapes = proj_shapes(get_spec(model))
-            for M, (proj, (K, N)) in itertools.product(M_DECODES, shapes.items()):
-                int4_case("int4_matmul_grouped", f"{model}:{proj}", M, K, N, 128, dtype)
+            for M, (proj, (K, N)) in itertools.product(INT4_M_DECODES, shapes.items()):
+                # M = 8, 16: fewer calls a time (their plain versions take 40 ms a call
+                # at lm_head); the sweep times these rows in full
+                int4_case("int4_matmul_grouped", f"{model}:{proj}", M, K, N, 128, dtype,
+                          reps=None if M in M_DECODES else 5)
             for M, proj in itertools.product(INT4_M_EXTRA_WINDOWS + M_WINDOWS,
                                              ("qkv", "o", "gateup", "down")):
                 int4_case("int4_matmul_grouped", f"{model}:{proj}", M, *shapes[proj], 128, dtype,
@@ -2458,6 +2464,10 @@ def _graph_tier(engine, prompts) -> dict:
         if r["launches"] != runs[1]["launches"]:
             fail(f"graphs {label}: the {r['mode']} run's launches differ from the eager run's: "
                  f"{r['launches']} / {runs[1]['launches']}")
+    # the decode matmuls add their K splits in the launch that computes them
+    if by_kernel.get("splitk_reduce"):
+        fail(f"graphs {label}: a split-K reduce kernel ran in the graphed decode loop "
+             f"({by_kernel['splitk_reduce']} ms a step)")
     stats = engine.loops.stats()
 
     def mean(mode, key):

@@ -17,7 +17,7 @@ cached tokens, bucketed to 192) and a 512-token prefill through the window
 path (7B and 0.5B heads in bf16, 14B heads in f32); each attention row is held against
 its plain version (the window's valid rows only). The grouped INT4 kernel
 (groups of 128 rows) at the smoke's decode shapes: every projection of
-Qwen2.5-14B and 32B at M = 1 and 4, bf16 and f32 x; the W8A8 kernel at the
+Qwen2.5-14B and 32B at M = 1, 4, 8 and 16, bf16 and f32 x; the W8A8 kernel at the
 smoke's: Qwen2.5-7B's five projections at M = 1, 4 and 8, bf16 x (it must
 equal its plain version bit for bit); and the Qwen2.5-72B width of
 ``scripts/torch_quant_format_bench.py`` (vocabulary 32768, bf16 x, M = 1 and
@@ -103,6 +103,7 @@ QF_M = (1, 8)
 # gateup and down only), on Qwen2.5-14B and 32B, bf16 and f32
 INT8_WINDOW_M = (32, 64, 128, 192, 512, 576, 2304)
 INT4_WINDOW_M = (64, 128, 192, 576)
+INT4_DECODE_M = (1, 4, 8, 16)  # the decode tile's 8 and 16 tokens, and their edges
 INT4_PREFILL_M = 2304
 WINDOW_REPS = 5
 TOL = {torch.bfloat16: dict(rtol=1e-2, atol=2e-2), torch.float32: dict(rtol=1e-4, atol=1e-4)}
@@ -279,7 +280,7 @@ def mm_rows(dev, g):
     for model, H, n_q, n_kv, F in (("qwen2.5-14b", 5120, 40, 8, 13824),
                                    ("qwen2.5-32b", 5120, 40, 8, 27648)):
         for proj, (K, N) in _proj(H, n_q, n_kv, F, 152064).items():
-            add("int4", model, proj, K, N, (1, 4), (torch.bfloat16, torch.float32))
+            add("int4", model, proj, K, N, INT4_DECODE_M, (torch.bfloat16, torch.float32))
     for proj, (K, N) in _proj(3584, 28, 4, 18944, 152064).items():
         add("w8a8", "qwen2.5-7b", proj, K, N, (1, 4, 8), (torch.bfloat16,))
     model, H, n_q, n_kv, F, V = QF_72B

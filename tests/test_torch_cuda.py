@@ -452,6 +452,37 @@ _WINDOW_ROWS = [slice(5, 5 + m) for m in _EDGE_M if m > 16]
 _MM_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rtol=1e-2, atol=2e-2)}
 
 
+def _f64_sum(x, q, scale, bits):
+    """The weight-only matmul's math in f64: x, the integer weights and the
+    f32 scales as doubles; grouped INT4 as each group's sub-dot times its
+    scale."""
+    from adaptive_sd_tpu_torch.ops.quant import unpack_int4
+
+    w = (unpack_int4(q) if bits == 4 else q).double()
+    x64 = x.double()
+    if scale.ndim == 2:
+        gs = w.shape[0] // scale.shape[0]
+        return sum((x64[:, a:a + gs] @ w[a:a + gs]) * scale[a // gs].double()[None]
+                   for a in range(0, w.shape[0], gs))
+    return (x64 @ w) * scale.double()[None, :]
+
+
+def _f64_ref(x, q, scale, bits):
+    """:func:`_f64_sum` rounded once to f32. At the large tile-edge shapes the plain
+    version's f32 ``torch.matmul`` strays from this sum by up to 4.5e-4 where
+    the kernels stay within 1.0e-4 (scripts/torch_f32_sum_probe.py), so the
+    f32 cases there are held against it."""
+    return _f64_sum(x, q, scale, bits).float()
+
+
+def _tile_edge_ref(x, q, scale, bits):
+    """The reference of the tile-edge tests: the f64 sum for f32 x, the
+    plain version for bf16 x (its outputs are rounded to bf16)."""
+    if x.dtype == torch.float32:
+        return _f64_ref(x, q, scale, bits)
+    return MQ.quantized_matmul_ref(x, q, scale, bits=bits)
+
+
 @pytest.mark.parametrize("M", _EDGE_M)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_int4_matmul_tile_edges(cuda, M, dtype):
@@ -466,7 +497,7 @@ def test_int4_matmul_tile_edges(cuda, M, dtype):
         t = quantize_int4(torch.randn(K, N, generator=g, device=cuda), group_size=gs)
         x = torch.randn(M, K, generator=g, device=cuda).to(dtype)
         out = MQ.quantized_matmul(x, t.q, t.scale, bits=4)
-        ref = MQ.quantized_matmul_ref(x, t.q, t.scale, bits=4)
+        ref = _tile_edge_ref(x, t.q, t.scale, 4)
         torch.testing.assert_close(out.float(), ref.float(), **_MM_TOL[dtype])
 
 
@@ -490,6 +521,24 @@ def test_int4_matmul_unaligned_x_and_q(cuda, M, dtype):
     out = MQ.quantized_matmul(x, q, t.scale, bits=4)
     ref = MQ.quantized_matmul_ref(x, q, t.scale, bits=4)
     torch.testing.assert_close(out.float(), ref.float(), **_MM_TOL[dtype])
+
+
+@pytest.mark.parametrize("M", range(1, 17))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gs", [128, None])
+def test_int4_decode_at_every_m(cuda, M, dtype, gs):
+    """Every M of the INT4 decode tiles (8 and 16 tokens), K split across
+    blocks and added by the tile's last block, within MM_TOL of the plain
+    version (f32: of the f64 sum, as at the tile edges); and the last row
+    equal bit for bit to the same row alone (one sum order at every M)."""
+    g = torch.Generator(device=cuda).manual_seed(M)
+    t = quantize_int4(torch.randn(5120, 7168, generator=g, device=cuda), group_size=gs)
+    x = torch.randn(M, 5120, generator=g, device=cuda).to(dtype)
+    assert MQ._int4_plan(M, 7168, 5120, gs or 0, 132)[1] > 1
+    out = MQ.quantized_matmul(x, t.q, t.scale, bits=4)
+    torch.testing.assert_close(out.float(), _tile_edge_ref(x, t.q, t.scale, 4).float(),
+                               **_MM_TOL[dtype])
+    assert torch.equal(MQ.quantized_matmul(x[M - 1:], t.q, t.scale, bits=4), out[M - 1:])
 
 
 @pytest.mark.parametrize("M", range(1, 17))
@@ -567,18 +616,23 @@ def test_two_streams_give_the_sequential_results(cuda, kernel):
                 assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("kernel", ["int8", "paged_decode", "paged_window"])
+@pytest.mark.parametrize("kernel", ["int8", "int4", "paged_decode", "paged_window"])
 def test_split_counters_are_left_zero(cuda, kernel):
-    """The INT8 decode tiles and the paged decode and window kernels find a
-    tile's last block with the stream's tile counters, which that block
-    returns to 0: after calls of every split count the buffer is zero again,
-    and a call repeated many times gives the first call's result."""
+    """The INT8 and INT4 decode tiles and the paged decode and window kernels
+    find a tile's last block with the stream's tile counters, which that
+    block returns to 0: after calls of every split count the buffer is zero
+    again, and a call repeated many times gives the first call's result."""
     g = torch.Generator(device=cuda).manual_seed(12)
     if kernel == "int8":
         t = quantize_int8(torch.randn(5120, 7168, generator=g, device=cuda))
         x = torch.randn(4, 5120, generator=g, device=cuda)
         assert MQ._int8_plan(7168, 5120, 132)[0] > 1
         fn = lambda: MQ.int8_matmul_cuda(x, t.q, t.scale)  # noqa: E731
+    elif kernel == "int4":
+        t = quantize_int4(torch.randn(5120, 7168, generator=g, device=cuda), group_size=128)
+        x = torch.randn(4, 5120, generator=g, device=cuda).to(torch.bfloat16)
+        assert MQ._int4_plan(4, 7168, 5120, 128, 132)[1] > 1
+        fn = lambda: MQ.int4_matmul_cuda(x, t.q, t.scale)  # noqa: E731
     else:
         n_kv, D, page, n_pages = 8, 128, 128, 64
         pages = _pages(g, n_kv, n_pages, page, D, cuda)
@@ -633,8 +687,36 @@ def test_int8_matmul_tile_edges(cuda, M, dtype):
         t = quantize_int8(torch.randn(K, N, generator=g, device=cuda))
         x = torch.randn(M, K, generator=g, device=cuda).to(dtype)
         out = MQ.int8_matmul_cuda(x, t.q, t.scale)
-        ref = MQ.quantized_matmul_ref(x, t.q, t.scale)
+        ref = _tile_edge_ref(x, t.q, t.scale, 8)
         torch.testing.assert_close(out.float(), ref.float(), **_MM_TOL[dtype])
+
+
+# The f32 cases that failed against the plain version: (kernel, M, K, N, group size)
+_F32_EDGE_CASES = [("int4", 255, 2000, 4112, None), ("int4", 2304, 2000, 4112, None),
+                   ("int4", 2311, 2000, 4112, None), ("int4", 2311, 4096, 512, 128),
+                   ("int4", 2304, 3072, 512, 96), ("int8", 2311, 1000, 4112, None),
+                   ("int8", 2311, 4096, 512, None)]
+
+
+@pytest.mark.parametrize("kernel,M,K,N,gs", _F32_EDGE_CASES)
+def test_f32_kernel_strays_less_than_the_plain_version(cuda, kernel, M, K, N, gs):
+    """At the tile-edge tests' data, the kernel's f32 output against the f64
+    sum of the same operands: no output past MM_TOL, and a largest error no
+    larger than the plain version's f32 torch.matmul (margin 1x; measured 0.11
+    to 0.26x of it here): the tensor cores' 16-product sums, folded with
+    round-to-nearest f32 every 32 rows, lose less than one f32 product summed
+    over K in one chain does."""
+    g = torch.Generator(device=cuda).manual_seed(M + K + N)
+    w = torch.randn(K, N, generator=g, device=cuda)
+    t = quantize_int4(w, group_size=gs) if kernel == "int4" else quantize_int8(w)
+    x = torch.randn(M, K, generator=g, device=cuda)
+    bits = 4 if kernel == "int4" else 8
+    out = MQ.quantized_matmul(x, t.q, t.scale, bits=bits)
+    plain = MQ.quantized_matmul_ref(x, t.q, t.scale, bits=bits)
+    exact = _f64_sum(x, t.q, t.scale, bits)
+    err = (out.double() - exact).abs()
+    assert not (err > 1e-4 + 1e-4 * exact.abs()).any()
+    assert float(err.max()) <= float((plain.double() - exact).abs().max())
 
 
 @pytest.mark.parametrize("M", [4, 300])

@@ -256,6 +256,27 @@ def test_tile_counters_are_not_made_inside_a_capture(monkeypatch):
     assert _kernels.tile_counters(torch.zeros(1), 123, 8) is buf
 
 
+@pytest.mark.parametrize("need", [1000, 1 << 20])
+def test_split_workspace_is_made_outside_a_capture_and_kept(monkeypatch, need):
+    """The INT4 decode tiles' split-K workspace is the stream's own: made
+    outside a capture (a first need inside one raises), reused while it is
+    large enough, and where a larger need replaces it, the old buffer is
+    kept alive for the graphs that captured its address."""
+    monkeypatch.setattr(_kernels, "_split_workspaces", {})
+    monkeypatch.setattr(_kernels, "_retired_workspaces", [])
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+    with pytest.raises(RuntimeError, match="warm the graph up"):
+        _kernels.split_workspace(torch.zeros(1), 123, need)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+    buf = _kernels.split_workspace(torch.zeros(1), 123, need)
+    assert buf.dtype == torch.float32 and buf.numel() >= need
+    assert _kernels.split_workspace(torch.zeros(1), 123, need) is buf
+    assert _kernels.split_workspace(torch.zeros(1), 456, need) is not buf  # another stream
+    bigger = _kernels.split_workspace(torch.zeros(1), 123, buf.numel() + 1)
+    assert bigger is not buf and bigger.numel() > buf.numel()
+    assert any(b is buf for b in _kernels._retired_workspaces)
+
+
 def test_loop_buckets_are_kept_and_evicted_least_recently_used(monkeypatch):
     monkeypatch.setattr(graphs, "MAX_BUCKETS", 2)
     loops = DeviceLoops(torch.device("cpu"))

@@ -115,6 +115,24 @@ def test_int4_plan_large_m_tile(M, N):
     assert (splits, r_per) == tmm._int4_plan(1, N, 5120, 128, 132)[1:]
 
 
+@pytest.mark.parametrize("M,N,K,gs", [
+    (1, 7168, 5120, 128), (4, 5120, 27648, 128), (16, 200, 384, 128), (8, 152064, 5120, 128),
+    (3, 130, 768, 32), (2, 96, 1000, 0), (16, 4112, 2000, 0),
+])
+def test_int4_decode_buffers_fit_the_split(M, N, K, gs):
+    """A decode call's stream buffers: one [M, N] f32 slab of partial sums a
+    K split and a tile counter for every 256-column decode tile (the
+    counters' zeroed default of 1024 covers every width up to 262144), none
+    where K is not split (one block a column tile writes the output)."""
+    _, splits, _ = tmm._int4_plan(M, N, K, gs, 132)
+    n_ws, n_counters = tmm._int4_decode_buffers(M, N, K, gs, 132)
+    if splits == 1:
+        assert (n_ws, n_counters) == (0, 0)
+    else:
+        assert n_ws == splits * M * N
+        assert n_counters == -(-N // 256) <= 1024
+
+
 def test_int4_cuda_wrapper_refuses_cpu_and_wrong_types():
     x, q, s = torch.zeros(2, 256), torch.zeros(128, 8, dtype=torch.int8), torch.ones(8)
     with pytest.raises(ValueError, match="CUDA"):
